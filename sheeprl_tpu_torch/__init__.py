@@ -1,8 +1,10 @@
 """sheeprl_tpu_torch — the PyTorch/CUDA port of sheeprl_tpu for NVIDIA Hopper.
 
 A package of its own beside ``sheeprl_tpu`` (the JAX reference, which it
-never imports).  This slice serves DreamerV3 policies through a session
-server; the RSSM's LayerNorm-GRU step runs as a hand-written CUDA kernel
-(``csrc/gru_cell.cu``).  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+never imports).  It serves DreamerV3 policies through a session server and
+runs DreamerV3 training steps (``algos/dreamer_v3/dreamer_v3.py``) on
+batches from a device-resident replay window.  The RSSM's LayerNorm-GRU
+step (``csrc/gru_cell.cu``) and the replay-window gather
+(``csrc/gather_windows.cu``) run as hand-written CUDA kernels.  Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,11 +1,18 @@
-"""DreamerV3 player half as torch modules.
+"""DreamerV3 as torch modules.
 
-Counterpart of the player half of ``sheeprl_tpu/algos/dreamer_v3/agent.py``:
-``LinearLnAct``, ``DreamerMLP``, the encoders, ``RecurrentModel``,
+Counterpart of ``sheeprl_tpu/algos/dreamer_v3/agent.py``: ``LinearLnAct``,
+``DreamerMLP``, the encoders and decoders, ``RecurrentModel``,
 ``compute_stochastic_state``, ``RSSM`` (recurrent step, representation,
-transition, initial states), ``Actor``, ``PlayerDV3`` and the player part
-of ``build_agent``.  The decoders, reward/continue heads and critic belong
-to the training slice.
+transition, initial states, and the training scan's ``dynamic_posterior``
+and ``imagination``), ``Actor``, ``PlayerDV3`` and ``build_agent``, which
+builds the world model with its observation, reward and continue models,
+the actor, the critic and a target critic that starts as a copy.
+:func:`build_player` builds only what the session server runs.
+
+Parameters start from the JAX package's initialisers in distribution
+(Hafner's: truncated normal, fan-average scaling on every trunk layer,
+uniform fan-average on the distribution heads, zeros on the reward and
+critic heads, flax's LeCun normal on the GRU's dense).
 
 Layouts at the module boundaries are the JAX package's: observations are
 NHWC, and the conv features are flattened in (H, W, C) order, so that the
@@ -16,6 +23,7 @@ channels.  Sampling takes explicit noise or an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sheeprl_tpu_torch.models.models import LayerNorm, LayerNormGRUCell, ln_act_apply, resolve_activation
+from sheeprl_tpu_torch.models.models import LayerNorm, LayerNormGRUCell, flax_init_, ln_act_apply, resolve_activation
 from sheeprl_tpu_torch.utils.distribution import (
     Independent,
     Normal,
@@ -35,17 +43,22 @@ from sheeprl_tpu_torch.utils.utils import symlog
 
 __all__ = [
     "Actor",
+    "CNNDecoder",
     "CNNEncoder",
+    "DreamerAgent",
     "DreamerMLP",
     "DreamerPlayer",
     "LinearLnAct",
+    "MLPDecoder",
     "MLPEncoder",
+    "MultiDecoderDV3",
     "MultiEncoderDV3",
     "PlayerDV3",
     "RSSM",
     "RecurrentModel",
     "WorldModel",
     "build_agent",
+    "build_player",
     "compute_stochastic_state",
 ]
 
@@ -87,6 +100,9 @@ class LinearLnAct(nn.Module):
     ):
         super().__init__()
         self.dense = nn.Linear(in_features, units, bias=not layer_norm, device=device)
+        flax_init_(self.dense.weight, "trunc")
+        if self.dense.bias is not None:
+            nn.init.zeros_(self.dense.bias)
         self.norm = LayerNorm(units, eps, device=device) if layer_norm else None
         self.act = act
         self.dtype = dtype
@@ -112,6 +128,7 @@ class DreamerMLP(nn.Module):
         act: Any = "silu",
         dtype: torch.dtype = torch.float32,
         device=None,
+        out_init: str = "trunc",
     ):
         super().__init__()
         dims = [in_features] + [units] * layers
@@ -119,6 +136,9 @@ class DreamerMLP(nn.Module):
             LinearLnAct(dims[i], units, layer_norm, eps, act, dtype, device) for i in range(layers)
         )
         self.head = nn.Linear(dims[-1], output_dim, device=device) if output_dim is not None else None
+        if self.head is not None:
+            flax_init_(self.head.weight, out_init)
+            nn.init.zeros_(self.head.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
@@ -155,6 +175,10 @@ class CNNEncoder(nn.Module):
             nn.Conv2d(chans[i], chans[i + 1], 4, stride=2, padding=1, bias=not layer_norm, device=device)
             for i in range(stages)
         )
+        for conv in self.convs:
+            flax_init_(conv.weight, "trunc")
+            if conv.bias is not None:
+                nn.init.zeros_(conv.bias)
         self.norms = (
             nn.ModuleList(LayerNorm(chans[i + 1], eps, device=device) for i in range(stages))
             if layer_norm
@@ -214,6 +238,120 @@ class MultiEncoderDV3(nn.Module):
         if self.mlp_encoder is not None:
             feats.append(self.mlp_encoder(obs))
         return torch.cat(feats, -1) if len(feats) > 1 else feats[0]
+
+
+class CNNDecoder(nn.Module):
+    """Dense projection -> (4, 4, 2^(stages-1) * mult) -> transposed convs
+    back to (H, W, sum(channels)), NHWC out, split per image key.
+
+    flax's ``ConvTranspose(4, stride 2, padding ((2, 2), (2, 2)))`` does
+    not flip its kernel; ``torch``'s transposed convolution is the true
+    transpose, so each layer here is ``conv_transpose2d(padding=1)`` with
+    the (kh, kw, in, out) flax kernel flipped in both spatial axes
+    (``utils/convert.py``).  The LayerNorms are over channels."""
+
+    def __init__(
+        self,
+        keys: Sequence[str],
+        output_channels: Sequence[int],
+        channels_multiplier: int,
+        latent_state_size: int,
+        cnn_encoder_output_dim: int,
+        stages: int = 4,
+        layer_norm: bool = True,
+        eps: float = 1e-3,
+        act: Any = "silu",
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.output_channels = tuple(int(c) for c in output_channels)
+        self.act = act
+        self.dtype = dtype
+        self.dense = nn.Linear(latent_state_size, cnn_encoder_output_dim, device=device)
+        flax_init_(self.dense.weight, "trunc")
+        nn.init.zeros_(self.dense.bias)
+        chans = [(2 ** (stages - i - 1)) * channels_multiplier for i in range(stages)] + [sum(self.output_channels)]
+        self.deconvs = nn.ModuleList(
+            nn.ConvTranspose2d(
+                chans[i], chans[i + 1], 4, stride=2, padding=1,
+                bias=not layer_norm or i == stages - 1, device=device,
+            )
+            for i in range(stages)
+        )
+        for i, deconv in enumerate(self.deconvs):
+            flax_init_(deconv.weight, "uniform" if i == stages - 1 else "trunc")
+            if deconv.bias is not None:
+                nn.init.zeros_(deconv.bias)
+        self.norms = (
+            nn.ModuleList(LayerNorm(chans[i + 1], eps, device=device) for i in range(stages - 1))
+            if layer_norm
+            else None
+        )
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = _linear(latent, self.dense, self.dtype)
+        lead = x.shape[:-1]
+        x = x.reshape(-1, 4, 4, self.deconvs[0].in_channels).permute(0, 3, 1, 2)
+        last = len(self.deconvs) - 1
+        for i, deconv in enumerate(self.deconvs):
+            # the last layer emits f32 for the reconstruction distributions
+            dt = torch.float32 if i == last else self.dtype
+            w = deconv.weight if dt == torch.float32 else deconv.weight.to(dt)
+            b = deconv.bias if deconv.bias is None or dt == torch.float32 else deconv.bias.to(dt)
+            x = F.conv_transpose2d(x.to(dt), w, b, stride=2, padding=1)
+            if i == last:
+                break
+            if self.norms is not None:
+                x = ln_act_apply(self.norms[i], x, act=self.act, dtype=self.dtype, dim=1)
+            else:
+                x = resolve_activation(self.act)(x.to(self.dtype))
+        x = x.permute(0, 2, 3, 1)
+        x = x.reshape(*lead, *x.shape[1:])
+        return dict(zip(self.keys, torch.split(x, list(self.output_channels), -1)))
+
+
+class MLPDecoder(nn.Module):
+    def __init__(
+        self,
+        keys: Sequence[str],
+        output_dims: Sequence[int],
+        latent_state_size: int,
+        mlp_layers: int = 4,
+        dense_units: int = 512,
+        layer_norm: bool = True,
+        eps: float = 1e-3,
+        act: Any = "silu",
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.mlp = DreamerMLP(latent_state_size, dense_units, mlp_layers, None, layer_norm, eps, act, dtype, device)
+        self.heads = nn.ModuleList(nn.Linear(dense_units, int(d), device=device) for d in output_dims)
+        for head in self.heads:
+            flax_init_(head.weight, "uniform")
+            nn.init.zeros_(head.bias)
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.mlp(latent).float()  # heads emit f32 for the distributions
+        return {k: head(x) for k, head in zip(self.keys, self.heads)}
+
+
+class MultiDecoderDV3(nn.Module):
+    def __init__(self, cnn_decoder: Optional[CNNDecoder], mlp_decoder: Optional[MLPDecoder]):
+        super().__init__()
+        self.cnn_decoder = cnn_decoder
+        self.mlp_decoder = mlp_decoder
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        if self.cnn_decoder is not None:
+            out.update(self.cnn_decoder(latent))
+        if self.mlp_decoder is not None:
+            out.update(self.mlp_decoder(latent))
+        return out
 
 
 class RecurrentModel(nn.Module):
@@ -286,16 +424,19 @@ class RSSM(nn.Module):
         self.discrete_size = int(discrete_size)
         self.unimix = float(unimix)
         self.decoupled = bool(decoupled)
+        self.layer_norm = bool(layer_norm)
+        self.act = act
+        self.dtype = dtype
         self.recurrent_model = RecurrentModel(
             stoch + int(np.sum(actions_dim)), recurrent_state_size, dense_units, layer_norm, eps,
             fused_gru, dtype, device,
         )
         rep_in = embedded_obs_dim if decoupled else recurrent_state_size + embedded_obs_dim
         self.representation_model = DreamerMLP(
-            rep_in, hidden_size, 1, stoch, layer_norm, eps, act, dtype, device
+            rep_in, hidden_size, 1, stoch, layer_norm, eps, act, dtype, device, out_init="uniform"
         )
         self.transition_model = DreamerMLP(
-            recurrent_state_size, hidden_size, 1, stoch, layer_norm, eps, act, dtype, device
+            recurrent_state_size, hidden_size, 1, stoch, layer_norm, eps, act, dtype, device, out_init="uniform"
         )
         init = torch.zeros(recurrent_state_size, device=device)
         if learnable_initial_recurrent_state:
@@ -342,6 +483,75 @@ class RSSM(nn.Module):
             logits, self.discrete_size, sample=sample_state, noise=noise, generator=generator
         )
 
+    # ---- the training scans (``make_train_fn``)
+    def representation_embed_proj(self, embedded_obs: torch.Tensor) -> torch.Tensor:
+        """The embed half of the representation model's first product,
+        batched over the whole sequence outside the dynamic scan."""
+        dense = self.representation_model.layers[0].dense
+        k_e = dense.weight[:, self.recurrent_state_size :]
+        k_e = k_e if self.dtype == torch.float32 else k_e.to(self.dtype)
+        out = embedded_obs.to(self.dtype) @ k_e.t()
+        if not self.layer_norm:
+            out = out + dense.bias.to(self.dtype)
+        return out
+
+    def _representation_from_proj(
+        self,
+        emb_proj: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Posterior from a precomputed embed projection: the h-side product
+        is added to ``emb_proj`` before the LayerNorm."""
+        block = self.representation_model.layers[0]
+        k_h = block.dense.weight[:, : self.recurrent_state_size]
+        k_h = k_h if self.dtype == torch.float32 else k_h.to(self.dtype)
+        x = recurrent_state.to(self.dtype) @ k_h.t() + emb_proj
+        if block.norm is not None:
+            x = ln_act_apply(block.norm, x, act=self.act, dtype=self.dtype)
+        else:
+            x = resolve_activation(self.act)(x.to(self.dtype))
+        logits = self._uniform_mix(self.representation_model.head(x.float()))
+        return logits, compute_stochastic_state(logits, self.discrete_size, noise=noise, generator=generator)
+
+    def dynamic_posterior(
+        self,
+        posterior: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        action: torch.Tensor,
+        emb_proj: torch.Tensor,
+        is_first: torch.Tensor,
+        init_states: Tuple[torch.Tensor, torch.Tensor],
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """One step of the dynamic scan with ``is_first``-gated resets:
+        -> (recurrent_state, posterior, posterior_logits)."""
+        init_rec, init_post = init_states
+        action = (1 - is_first) * action
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * init_rec
+        posterior = posterior.reshape(*posterior.shape[:-2], -1)
+        posterior = (1 - is_first) * posterior + is_first * init_post.reshape(posterior.shape)
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], -1), recurrent_state)
+        posterior_logits, posterior = self._representation_from_proj(
+            emb_proj, recurrent_state, noise=noise, generator=generator
+        )
+        return recurrent_state, posterior, posterior_logits
+
+    def imagination(
+        self,
+        prior: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        actions: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One imagination step: -> (prior sample, recurrent state)."""
+        recurrent_state = self.recurrent_model(torch.cat([prior, actions], -1), recurrent_state)
+        _, imagined_prior = self._transition(recurrent_state, noise=noise, generator=generator)
+        return imagined_prior, recurrent_state
+
 
 class Actor(nn.Module):
     """Trunk MLP + per-subaction heads: unimix'd straight-through one-hot
@@ -384,6 +594,9 @@ class Actor(nn.Module):
             self.heads = nn.ModuleList([nn.Linear(dense_units, 2 * sum(self.actions_dim), device=device)])
         else:
             self.heads = nn.ModuleList(nn.Linear(dense_units, d, device=device) for d in self.actions_dim)
+        for head in self.heads:
+            flax_init_(head.weight, "uniform")
+            nn.init.zeros_(head.bias)
 
     def _dist_name(self) -> str:
         if self.distribution == "auto":
@@ -436,12 +649,23 @@ class Actor(nn.Module):
 
 
 class WorldModel(nn.Module):
-    """The world-model modules the player runs (encoder + RSSM)."""
+    """The world-model modules: encoder and RSSM (all the player runs),
+    and for training the observation, reward and continue models."""
 
-    def __init__(self, encoder: MultiEncoderDV3, rssm: RSSM):
+    def __init__(
+        self,
+        encoder: MultiEncoderDV3,
+        rssm: RSSM,
+        observation_model: Optional[MultiDecoderDV3] = None,
+        reward_model: Optional[DreamerMLP] = None,
+        continue_model: Optional[DreamerMLP] = None,
+    ):
         super().__init__()
         self.encoder = encoder
         self.rssm = rssm
+        self.observation_model = observation_model
+        self.reward_model = reward_model
+        self.continue_model = continue_model
 
 
 class DreamerPlayer(nn.Module):
@@ -452,6 +676,27 @@ class DreamerPlayer(nn.Module):
         super().__init__()
         self.world_model = world_model
         self.actor = actor
+
+
+class DreamerAgent(nn.Module):
+    """Everything training updates, laid out like the JAX package's
+    ``params`` tree: ``world_model`` (encoder, rssm, observation_model,
+    reward_model, continue_model), ``actor``, ``critic`` and
+    ``target_critic`` (an EMA copy of the critic that no optimizer
+    touches)."""
+
+    def __init__(self, world_model: WorldModel, actor: Actor, critic: DreamerMLP, target_critic: DreamerMLP):
+        super().__init__()
+        self.world_model = world_model
+        self.actor = actor
+        self.critic = critic
+        self.target_critic = target_critic
+        self.target_critic.requires_grad_(False)
+
+    def player(self) -> DreamerPlayer:
+        """The player's modules (encoder, RSSM, actor), shared with this agent."""
+        wm = self.world_model
+        return DreamerPlayer(WorldModel(wm.encoder, wm.rssm), self.actor)
 
 
 class PlayerDV3:
@@ -513,19 +758,8 @@ class PlayerDV3:
         return actions
 
 
-def build_agent(
-    runtime,
-    actions_dim: Sequence[int],
-    is_continuous: bool,
-    cfg,
-    obs_space,
-) -> DreamerPlayer:
-    """The player modules (encoder, RSSM, actor) on ``runtime.device``,
-    initialised from the torch RNG (``runtime`` seeds it).
-
-    ``obs_space`` maps each observation key to anything with a ``shape``
-    (NHWC for images).  Load trained weights with
-    :func:`sheeprl_tpu_torch.utils.convert.flax_to_torch`."""
+def _player_modules(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space):
+    """Encoder, RSSM and actor, and the sizes the rest of the agent needs."""
     wm_cfg = cfg.algo.world_model
     actor_cfg = cfg.algo.actor
     device = runtime.device
@@ -604,4 +838,74 @@ def build_agent(
         dtype=dtype,
         device=device,
     )
+    sizes = {"latent": stoch_flat + recurrent_state_size, "cnn_out": cnn_out, "cnn_stages": cnn_stages}
+    return encoder, rssm, actor, sizes
+
+
+def build_player(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space) -> DreamerPlayer:
+    """The player modules (encoder, RSSM, actor) on ``runtime.device``,
+    initialised from the torch RNG (``runtime`` seeds it): what the session
+    server runs.  ``obs_space`` maps each observation key to anything with a
+    ``shape`` (NHWC for images).  Load trained weights with
+    :func:`sheeprl_tpu_torch.utils.convert.load_flax_params`."""
+    encoder, rssm, actor, _ = _player_modules(runtime, actions_dim, is_continuous, cfg, obs_space)
     return DreamerPlayer(WorldModel(encoder, rssm), actor).eval()
+
+
+def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space) -> DreamerAgent:
+    """The whole DreamerV3 agent (``agent.py:build_agent``): the world model
+    with its observation, reward and continue models, the actor, the critic
+    and a target critic that starts as a copy of the critic, on
+    ``runtime.device`` and initialised from the torch RNG."""
+    wm_cfg = cfg.algo.world_model
+    critic_cfg = cfg.algo.critic
+    device = runtime.device
+    dtype = runtime.compute_dtype
+    encoder, rssm, actor, sizes = _player_modules(runtime, actions_dim, is_continuous, cfg, obs_space)
+    latent = sizes["latent"]
+    cnn_dec_keys = tuple(cfg.algo.cnn_keys.decoder)
+    mlp_dec_keys = tuple(cfg.algo.mlp_keys.decoder)
+    obs_cfg = wm_cfg.observation_model
+    cnn_decoder = (
+        CNNDecoder(
+            keys=cnn_dec_keys,
+            output_channels=[int(obs_space[k].shape[-1]) for k in cnn_dec_keys],
+            channels_multiplier=int(obs_cfg.cnn_channels_multiplier),
+            latent_state_size=latent,
+            cnn_encoder_output_dim=sizes["cnn_out"],
+            stages=sizes["cnn_stages"],
+            layer_norm=_ln_enabled(obs_cfg.cnn_layer_norm),
+            eps=_ln_eps(obs_cfg.cnn_layer_norm),
+            dtype=dtype,
+            device=device,
+        )
+        if cnn_dec_keys
+        else None
+    )
+    mlp_decoder = (
+        MLPDecoder(
+            keys=mlp_dec_keys,
+            output_dims=[int(obs_space[k].shape[0]) for k in mlp_dec_keys],
+            latent_state_size=latent,
+            mlp_layers=int(obs_cfg.mlp_layers),
+            dense_units=int(obs_cfg.dense_units),
+            layer_norm=_ln_enabled(obs_cfg.mlp_layer_norm),
+            eps=_ln_eps(obs_cfg.mlp_layer_norm),
+            dtype=dtype,
+            device=device,
+        )
+        if mlp_dec_keys
+        else None
+    )
+
+    def head(node, output_dim: int, out_init: str) -> DreamerMLP:
+        return DreamerMLP(
+            latent, int(node.dense_units), int(node.mlp_layers), output_dim, _ln_enabled(node.layer_norm),
+            _ln_eps(node.layer_norm), "silu", dtype, device, out_init=out_init,
+        )
+
+    reward_model = head(wm_cfg.reward_model, int(wm_cfg.reward_model.bins), "zeros")
+    continue_model = head(wm_cfg.discount_model, 1, "uniform")
+    critic = head(critic_cfg, int(critic_cfg.bins), "zeros")
+    world_model = WorldModel(encoder, rssm, MultiDecoderDV3(cnn_decoder, mlp_decoder), reward_model, continue_model)
+    return DreamerAgent(world_model, actor, critic, copy.deepcopy(critic))

@@ -1,0 +1,316 @@
+"""DreamerV3 training steps (counterpart of the training half of
+``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``).
+
+:func:`make_train_fn` builds the gradient step of ``make_train_fn``
+(``dreamer_v3.py:171-626``): the world-model loss over a dynamic scan of
+the RSSM, one optimizer step of the world model; imagination from the
+detached posteriors through the *updated* world model, the actor loss
+against Moments-normalised lambda returns, one actor step; the critic loss
+against the lambda returns and the target critic, one critic step.
+Parameters and optimizer states are updated in place.
+
+:func:`train_steps` is the training block of ``main`` (:913-949): for each
+gradient step, the target critic's EMA (tau = 1 on the very first), then
+the step, on batches from :func:`~sheeprl_tpu_torch.data.device_buffer.sequence_batches`.
+The env loop that calls it, checkpoints and the training-health sentinel
+(``guard_update``, off by default) wait for later slices.
+
+Randomness: a step draws every sample's noise up front (:func:`draw_noise`)
+from a ``torch.Generator``, or takes it pre-drawn.  The noise layout is
+the JAX step's: Gumbel noise (T, B, S, D) for the dynamic scan, (H, T*B,
+S, D) for imagination, and the actor's noise (H + 1, T*B, sum(actions))
+(Gumbel per discrete head, standard normal for continuous actions).
+Imagination rows are B-major: row r = b * T + t.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import DreamerAgent
+from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import compute_lambda_values, init_moments, update_moments
+from sheeprl_tpu_torch.data.device_buffer import sequence_batches
+from sheeprl_tpu_torch.optim import Adam, AdamState, build_optimizer, global_norm
+from sheeprl_tpu_torch.utils.distribution import (
+    BernoulliSafeMode,
+    Independent,
+    MSEDistribution,
+    OneHotCategorical,
+    SymlogDistribution,
+    TwoHotEncodingDistribution,
+    gumbel_noise,
+    normal_noise,
+)
+
+__all__ = ["TrainState", "draw_noise", "ema_", "make_train_fn", "make_train_state", "train_steps"]
+
+
+def draw_noise(
+    cfg, seq_len: int, batch_size: int, actions_dim: Sequence[int], is_continuous: bool, *, device, generator=None
+) -> Dict[str, torch.Tensor]:
+    """Every draw of one train step: {"dyn", "img", "act"} (module docstring)."""
+    wm_cfg = cfg.algo.world_model
+    s, d = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    horizon, rows = int(cfg.algo.horizon), seq_len * batch_size
+    like = torch.empty((), device=device)
+    draw = normal_noise if is_continuous else gumbel_noise
+    return {
+        "dyn": gumbel_noise((seq_len, batch_size, s, d), like=like, generator=generator),
+        "img": gumbel_noise((horizon, rows, s, d), like=like, generator=generator),
+        "act": draw((horizon + 1, rows, int(np.sum(actions_dim))), like=like, generator=generator),
+    }
+
+
+def _grads(loss: torch.Tensor, params: Dict[str, torch.nn.Parameter]) -> Dict[str, torch.Tensor]:
+    """d loss / d params; a parameter the loss does not reach gets zeros, as in JAX."""
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), got)}
+
+
+def _trainable(module: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    return {k: p for k, p in module.named_parameters() if p.requires_grad}
+
+
+def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_continuous: bool, actions_dim):
+    """The gradient step: ``train(opt_states, moments, data, noise=None,
+    generator=None) -> (opt_states, moments, metrics)``, ``data`` a dict of
+    (T, B, *) tensors on the agent's device, ``metrics`` the JAX step's
+    dict of 0-d tensors (nothing is copied to the host)."""
+    wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+    rssm = wm.rssm
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    cnn_keys_dec = tuple(cfg.algo.cnn_keys.decoder)
+    mlp_keys_dec = tuple(cfg.algo.mlp_keys.decoder)
+    wm_cfg = cfg.algo.world_model
+    stochastic_size, discrete_size = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    stoch_state_size = stochastic_size * discrete_size
+    recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+    horizon = int(cfg.algo.horizon)
+    gamma, lmbda = float(cfg.algo.gamma), float(cfg.algo.lmbda)
+    ent_coef = float(cfg.algo.actor.ent_coef)
+    kl = dict(
+        kl_dynamic=float(wm_cfg.kl_dynamic),
+        kl_representation=float(wm_cfg.kl_representation),
+        kl_free_nats=float(wm_cfg.kl_free_nats),
+        kl_regularizer=float(wm_cfg.kl_regularizer),
+        continue_scale_factor=float(wm_cfg.continue_scale_factor),
+    )
+    moments_cfg = cfg.algo.actor.moments
+    if bool(wm_cfg.decoupled_rssm):
+        raise NotImplementedError("the decoupled RSSM's training scan is not ported yet (DV3-S decoupled slice)")
+    compute_dtype = runtime.compute_dtype
+    splits = [int(c) for c in np.cumsum(actions_dim)[:-1]]
+    wm_params, actor_params, critic_params = _trainable(wm), _trainable(actor), _trainable(critic)
+
+    def train(opt_states: Dict[str, AdamState], moments: Dict[str, torch.Tensor], data, noise=None, generator=None):
+        T, B = data["rewards"].shape[:2]
+        device = data["rewards"].device
+        if noise is None:
+            noise = draw_noise(cfg, T, B, actions_dim, is_continuous, device=device, generator=generator)
+        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
+        batch_obs.update({k: data[k].float() for k in mlp_keys})
+        is_first = data["is_first"].float().clone()
+        is_first[0] = 1.0
+        # a_t in the buffer acted after o_t; the RSSM input at t is the previous action
+        actions = data["actions"].float()
+        batch_actions = torch.cat([torch.zeros_like(actions[:1]), actions[:-1]], 0)
+        rewards = data["rewards"].float()
+        terminated = data["terminated"].float()
+
+        # ------------------------------------------------ world model
+        enc_obs = {k: batch_obs[k].to(compute_dtype) for k in cnn_keys}
+        enc_obs.update({k: batch_obs[k] for k in mlp_keys})
+        embedded_obs = wm.encoder(enc_obs)  # (T, B, E)
+        init_rec, init_post = rssm.get_initial_states((B,))
+        init_states = (init_rec, init_post.reshape(B, -1))
+        emb_proj = rssm.representation_embed_proj(embedded_obs)
+        posterior = torch.zeros(B, stochastic_size, discrete_size, device=device)
+        recurrent_state = torch.zeros(B, recurrent_state_size, device=device)
+        recs, posts, post_logits = [], [], []
+        for t in range(T):
+            recurrent_state, posterior, logits = rssm.dynamic_posterior(
+                posterior, recurrent_state, batch_actions[t], emb_proj[t], is_first[t], init_states,
+                noise=noise["dyn"][t],
+            )
+            recs.append(recurrent_state)
+            posts.append(posterior)
+            post_logits.append(logits)
+        recurrent_states = torch.stack(recs)
+        posteriors = torch.stack(posts)  # (T, B, S, D)
+        priors_logits, _ = rssm._transition(recurrent_states, sample_state=False)
+        latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], -1)
+        reconstructed = wm.observation_model(latent_states)
+        po = {k: MSEDistribution(reconstructed[k], dims=reconstructed[k].dim() - 2) for k in cnn_keys_dec}
+        po.update({k: SymlogDistribution(reconstructed[k], dims=reconstructed[k].dim() - 2) for k in mlp_keys_dec})
+        pr = TwoHotEncodingDistribution(wm.reward_model(latent_states), dims=1)
+        pc = Independent(BernoulliSafeMode(logits=wm.continue_model(latent_states)), 1)
+        pl = priors_logits.reshape(T, B, stochastic_size, discrete_size)
+        psl = torch.stack(post_logits).reshape(T, B, stochastic_size, discrete_size)
+        rec_loss, kl_value, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+            po, batch_obs, pr, rewards, pl, psl, pc=pc, continue_targets=1 - terminated, **kl
+        )
+        wm_grads = _grads(rec_loss, wm_params)
+        wm_norm = global_norm(wm_grads.values())
+        txs["world_model"].update(wm_params, wm_grads, opt_states["world_model"], norm=wm_norm)
+        del wm_grads
+
+        # ------------------------------------------------ imagination, through the updated world model
+        imagined_prior = posteriors.detach().transpose(0, 1).reshape(T * B, stoch_state_size)
+        recurrent_state = recurrent_states.detach().transpose(0, 1).reshape(T * B, recurrent_state_size)
+        true_continue = (1 - terminated).transpose(0, 1).reshape(1, T * B, 1)
+        # with discrete actions nothing differentiable flows through the
+        # rollout (the objective is logp * sg(advantage)): build no graph
+        with torch.set_grad_enabled(is_continuous):
+            latent0 = torch.cat([imagined_prior, recurrent_state], -1).to(compute_dtype)
+            acts, _ = actor(latent0.detach(), False, noise=noise["act"][0])
+            action = torch.cat(acts, -1)
+            latents, imagined_actions = [latent0], [action]
+            for i in range(horizon):
+                imagined_prior, recurrent_state = rssm.imagination(
+                    imagined_prior, recurrent_state, action, noise=noise["img"][i]
+                )
+                imagined_prior = imagined_prior.reshape(-1, stoch_state_size)
+                latent = torch.cat([imagined_prior, recurrent_state], -1)
+                acts, _ = actor(latent.detach(), False, noise=noise["act"][i + 1])
+                action = torch.cat(acts, -1)
+                latents.append(latent.to(compute_dtype))
+                imagined_actions.append(action)
+            imagined_trajectories = torch.stack(latents)  # (H + 1, T*B, L)
+            imagined_actions = torch.stack(imagined_actions)
+            predicted_values = TwoHotEncodingDistribution(critic(imagined_trajectories), dims=1).mean
+            predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(imagined_trajectories), dims=1).mean
+            continues = Independent(BernoulliSafeMode(logits=wm.continue_model(imagined_trajectories)), 1).mode
+            continues = torch.cat([true_continue, continues[1:]], 0)
+            lambda_vals = compute_lambda_values(predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda)
+            discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
+
+        # ------------------------------------------------ actor
+        _, policies = actor(imagined_trajectories.detach(), True)
+        baseline = predicted_values[:-1]
+        new_moments, offset, invscale = update_moments(
+            moments, lambda_vals, float(moments_cfg.decay), float(moments_cfg.max),
+            float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
+        )
+        advantage = (lambda_vals - offset) / invscale - (baseline - offset) / invscale
+        if is_continuous:
+            objective = advantage
+        else:
+            sub_actions = torch.tensor_split(imagined_actions, splits, -1)
+            logps = torch.stack(
+                [p.log_prob(a.detach())[:-1][..., None] for p, a in zip(policies, sub_actions)], -1
+            ).sum(-1)
+            objective = logps * advantage.detach()
+        try:
+            entropy = ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
+        except (AttributeError, NotImplementedError):  # a distribution without entropy
+            entropy = torch.zeros(imagined_trajectories.shape[:2], device=device)
+        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
+        actor_grads = _grads(policy_loss, actor_params)
+        actor_norm = global_norm(actor_grads.values())
+        txs["actor"].update(actor_params, actor_grads, opt_states["actor"], norm=actor_norm)
+        del actor_grads
+
+        # ------------------------------------------------ critic
+        traj = imagined_trajectories.detach()[:-1]
+        lambda_vals = lambda_vals.detach()
+        qv = TwoHotEncodingDistribution(critic(traj), dims=1)
+        with torch.no_grad():
+            predicted_target_values = TwoHotEncodingDistribution(target_critic(traj), dims=1).mean
+        value_loss = -qv.log_prob(lambda_vals) - qv.log_prob(predicted_target_values)
+        value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
+        critic_grads = _grads(value_loss, critic_params)
+        critic_norm = global_norm(critic_grads.values())
+        txs["critic"].update(critic_params, critic_grads, opt_states["critic"], norm=critic_norm)
+
+        with torch.no_grad():
+            post_ent = Independent(OneHotCategorical(logits=psl.detach()), 1).entropy().mean()
+            prior_ent = Independent(OneHotCategorical(logits=pl.detach()), 1).entropy().mean()
+        metrics = {
+            "Loss/world_model_loss": rec_loss.detach(),
+            "Loss/observation_loss": observation_loss.detach(),
+            "Loss/reward_loss": reward_loss.detach(),
+            "Loss/state_loss": state_loss.detach(),
+            "Loss/continue_loss": continue_loss.detach(),
+            "State/kl": kl_value.detach(),
+            "State/post_entropy": post_ent,
+            "State/prior_entropy": prior_ent,
+            "Loss/policy_loss": policy_loss.detach(),
+            "Loss/value_loss": value_loss.detach(),
+            "Grads/world_model": wm_norm,
+            "Grads/actor": actor_norm,
+            "Grads/critic": critic_norm,
+        }
+        return opt_states, new_moments, metrics
+
+    return train
+
+
+@torch.no_grad()
+def ema_(target: torch.nn.Module, source: torch.nn.Module, tau: float) -> None:
+    """``optax.incremental_update``: target = tau * source + (1 - tau) * target."""
+    for t, s in zip(target.parameters(), source.parameters()):
+        t.mul_(1.0 - tau).add_(s, alpha=tau)
+
+
+@dataclass
+class TrainState:
+    """What ``main`` carries between gradient steps."""
+
+    agent: DreamerAgent
+    txs: Dict[str, Adam]
+    opt_states: Dict[str, AdamState]
+    moments: Dict[str, torch.Tensor]
+    train_fn: Callable
+    gradient_steps: int = 0  # cumulative_per_rank_gradient_steps
+    metrics: Optional[Dict[str, torch.Tensor]] = None
+
+
+def make_train_state(runtime, agent: DreamerAgent, cfg, is_continuous: bool, actions_dim) -> TrainState:
+    """Optimizers (``build_optimizer`` per group, with its clip), their
+    states, the Moments state and the train step for ``agent``."""
+    precision = runtime.precision
+    groups = {"world_model": agent.world_model, "actor": agent.actor, "critic": agent.critic}
+    txs = {
+        name: build_optimizer(cfg.algo[name].optimizer, cfg.algo[name].clip_gradients, precision) for name in groups
+    }
+    opt_states = {name: txs[name].init(_trainable(module)) for name, module in groups.items()}
+    train_fn = make_train_fn(runtime, agent, txs, cfg, is_continuous, actions_dim)
+    return TrainState(agent, txs, opt_states, init_moments(runtime.device), train_fn)
+
+
+def train_steps(
+    state: TrainState,
+    rb,
+    device_cache,
+    cfg,
+    per_rank_gradient_steps: int,
+    generator: Optional[torch.Generator] = None,
+    noises: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+) -> List[Dict[str, torch.Tensor]]:
+    """The training block of ``main``: ``per_rank_gradient_steps`` steps on
+    one draw of sequence batches, each after the target critic's EMA.
+    ``noises`` optionally gives each step's pre-drawn noise.  Returns each
+    step's metrics."""
+    critic_cfg = cfg.algo.critic
+    device = next(state.agent.parameters()).device
+    out = []
+    with sequence_batches(
+        rb, device_cache, device, per_rank_gradient_steps, int(cfg.algo.per_rank_batch_size),
+        int(cfg.algo.per_rank_sequence_length), generator,
+    ) as feed:
+        for i, batch in enumerate(feed):
+            if state.gradient_steps % int(critic_cfg.per_rank_target_network_update_freq) == 0:
+                tau = 1.0 if state.gradient_steps == 0 else float(critic_cfg.tau)
+                ema_(state.agent.target_critic, state.agent.critic, tau)
+            state.opt_states, state.moments, state.metrics = state.train_fn(
+                state.opt_states, state.moments, batch, noise=None if noises is None else noises[i], generator=generator
+            )
+            state.gradient_steps += 1
+            out.append(state.metrics)
+    return out

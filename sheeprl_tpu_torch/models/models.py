@@ -9,8 +9,10 @@ in f32, the fast variance ``max(E[x^2] - E[x]^2, 0)``, then
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -20,6 +22,7 @@ from sheeprl_tpu_torch.ops.gru_cell import gru_cell
 __all__ = [
     "LayerNorm",
     "LayerNormGRUCell",
+    "flax_init_",
     "gru_cell_apply",
     "layer_norm",
     "ln_act_apply",
@@ -60,6 +63,34 @@ def resolve_activation(act: Union[str, Callable, None]) -> Callable:
     if key not in _ACTIVATIONS:
         raise ValueError(f"Unknown activation '{act}'. Known: {sorted(_ACTIVATIONS)}")
     return _ACTIVATIONS[key]
+
+
+# the std of a unit normal cut at +-2: flax's truncated normal divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_init_(weight: torch.Tensor, init: str) -> None:
+    """One of the JAX package's kernel initialisers, in distribution:
+    ``trunc`` (variance scaling 1.0, fan_avg, truncated normal: Hafner's
+    trunk init), ``uniform`` (variance scaling 1.0, fan_avg, uniform: the
+    distribution heads) or ``zeros`` (reward and critic heads).  The first
+    two dims of ``weight`` are its in and out features (in either order, as
+    Linear, Conv2d and ConvTranspose2d hold them), the rest the receptive
+    field."""
+    if init == "zeros":
+        weight.zero_()
+        return
+    rf = int(np.prod(weight.shape[2:], dtype=np.int64))
+    fan_avg = (weight.shape[0] + weight.shape[1]) * rf / 2
+    if init == "uniform":
+        limit = math.sqrt(3.0 / fan_avg)
+        weight.uniform_(-limit, limit)
+        return
+    if init != "trunc":
+        raise ValueError(f"unknown initialiser '{init}'")
+    std = math.sqrt(1.0 / fan_avg) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
 
 
 def layer_norm(
@@ -139,9 +170,10 @@ class LayerNormGRUCell(nn.Module):
         self.fused = bool(fused)
         self.dtype = dtype
         k = self.hidden_size + int(input_size)
-        bound = k**-0.5
+        # flax Dense's default kernel init: LeCun normal (fan_in = k), truncated at 2 std
+        std = math.sqrt(1.0 / k) / _TRUNC_STD
         self.weight = nn.Parameter(
-            torch.empty(k, 3 * self.hidden_size, device=device).uniform_(-bound, bound)
+            nn.init.trunc_normal_(torch.empty(k, 3 * self.hidden_size, device=device), 0.0, std, -2 * std, 2 * std)
         )
         self.norm = LayerNorm(3 * self.hidden_size, eps=1e-6, device=device)
         self.impl = gru_cell

@@ -1,7 +1,7 @@
-"""The LayerNorm-GRU step: a hand-written CUDA kernel and its plain version.
+"""The LayerNorm-GRU step: a hand-written CUDA kernel, its plain version,
+and the autograd op that training runs.
 
-Counterpart of ``sheeprl_tpu/ops/pallas_gru.py`` (forward only: the
-custom-VJP backward belongs to the training slice).  One step computes
+Counterpart of ``sheeprl_tpu/ops/pallas_gru.py``.  One step computes
 
     parts = LN(concat([h, x]) @ W)          # no bias, LN over 3H
     reset, cand, update = split(parts, 3)
@@ -14,41 +14,37 @@ Pallas kernel's LayerNorm (variance of the centred values, ``pallas_gru.py``
 :63-64); ``two_pass=False`` is the flax cell's ``max(E[p^2] - E[p]^2, 0)``
 (``models.py`` :309-312).  Both use eps 1e-6.
 
-:func:`gru_cell` is the wrapper: for tensors on the CPU it computes
-:func:`gru_cell_plain`; for CUDA tensors it launches the kernel in
-``csrc/gru_cell.cu`` or raises.  The kernel is compiled with ``nvcc`` for
-``sm_90a`` on first use into ``build/torch_kernels/`` (rebuilt when the
-source changes) and bound with ``ctypes``.
+:func:`gru_cell` is the op.  Its forward is the kernel in
+``csrc/gru_cell.cu`` for CUDA tensors (or it raises) and
+:func:`gru_cell_plain` for CPU tensors.  When a gradient is needed it runs
+as a ``torch.autograd.Function`` whose backward is the counterpart of
+``pallas_gru.py:_gru_bwd``: it recomputes the step through the plain
+formulas from the saved (h, x, W, gamma, beta) and differentiates them.
+JAX computes that backward in XLA, outside any Pallas kernel, so here its
+products go to ``torch.matmul``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
 
-__all__ = ["gru_cell", "gru_cell_plain", "build_library", "split_k", "SOURCE"]
+from sheeprl_tpu_torch.ops.build import CudaLibrary
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gru_cell.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+__all__ = ["LIBRARY", "gru_cell", "gru_cell_plain", "split_k"]
+
 # the product kernel's tile (csrc/gru_cell.cu: kBlockN, kChunk)
 _BLOCK_N = 1024
 _CHUNK = 32
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.sheeprl_gru_cell_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    lib.sheeprl_gru_cell_forward.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("gru_cell.cu", "libsheeprl_gru", _bind)
 
 
 def gru_cell_plain(
@@ -81,60 +77,6 @@ def gru_cell_plain(
     cand = torch.tanh(reset * parts[..., hidden : 2 * hidden])
     update = torch.sigmoid(parts[..., 2 * hidden :] - 1.0)
     return update * cand + (1.0 - update) * h.float()
-
-
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the GRU kernel")
-
-
-def build_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library.
-
-    ``build_library.log`` keeps the compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel) and
-    ``build_library.seconds`` the time the last build took (0 when the
-    library was already built)."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out_dir = BUILD_DIR
-        out_dir.mkdir(parents=True, exist_ok=True)
-        target = out_dir / f"libsheeprl_gru_{digest}.so"
-        t0 = time.perf_counter()
-        if not target.exists():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_library.log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_library.log}")
-            os.replace(tmp, target)
-        build_library.seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(target))
-        lib.sheeprl_gru_cell_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        lib.sheeprl_gru_cell_forward.restype = ctypes.c_int
-        _lib = lib
-        return lib
-
-
-build_library.log = ""
-build_library.seconds = 0.0
 
 
 def split_k(batch: int, hidden: int, kdim: int, sm_count: int) -> tuple:
@@ -179,26 +121,15 @@ def _check(h, x, w, gamma, beta) -> None:
             raise ValueError(f"gru_cell: {name} must be 16-byte aligned")
 
 
-def gru_cell(
-    h: torch.Tensor,
-    x: torch.Tensor,
-    w: torch.Tensor,
-    gamma: torch.Tensor,
-    beta: torch.Tensor,
-    *,
-    eps: float = 1e-6,
-    two_pass: bool = True,
-) -> torch.Tensor:
-    """One LayerNorm-GRU step: (B, H) f32 state out.
-
-    CPU tensors take :func:`gru_cell_plain`; CUDA tensors launch the kernel
-    (and count one in ``gru_cell.launches``) or raise."""
+def _forward(h, x, w, gamma, beta, eps: float, two_pass: bool) -> torch.Tensor:
+    """The step without autograd: the plain version for CPU tensors, the
+    kernel (one count in ``gru_cell.launches``) for CUDA tensors."""
     if h.device.type == "cpu":
         return gru_cell_plain(h, x, w, gamma, beta, eps=eps, two_pass=two_pass)
     if h.device.type != "cuda":
         raise ValueError(f"gru_cell: no kernel for device {h.device}")
     _check(h, x, w, gamma, beta)
-    lib = build_library()
+    lib = LIBRARY.load()
     b, hidden = h.shape
     xdim = x.shape[1]
     out = torch.empty((b, hidden), dtype=torch.float32, device=h.device)
@@ -219,6 +150,50 @@ def gru_cell(
         raise RuntimeError(f"gru_cell kernel launch failed: cudaError {err}")
     gru_cell.launches += 1
     return out
+
+
+class _GruCellFunction(torch.autograd.Function):
+    """Forward through :func:`_forward`; backward through the plain
+    formulas, recomputed in f32 from the saved inputs (``_gru_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, h, x, w, gamma, beta, eps, two_pass):
+        ctx.save_for_backward(h, x, w, gamma, beta)
+        ctx.eps, ctx.two_pass = eps, two_pass
+        return _forward(h, x, w, gamma, beta, eps, two_pass)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_(n) for t, n in zip(saved, need)]
+            out = gru_cell_plain(*leaves, eps=ctx.eps, two_pass=ctx.two_pass)
+            wanted = [leaf for leaf, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(out, wanted, grad))
+        grads = [next(got).to(t.dtype) if n else None for t, n in zip(saved, need)]
+        return (*grads, None, None)
+
+
+def gru_cell(
+    h: torch.Tensor,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    *,
+    eps: float = 1e-6,
+    two_pass: bool = True,
+) -> torch.Tensor:
+    """One LayerNorm-GRU step: (B, H) f32 state out.
+
+    CPU tensors take :func:`gru_cell_plain`; CUDA tensors launch the kernel
+    (and count one in ``gru_cell.launches``) or raise.  Under autograd the
+    step is differentiable, with the backward described in the module
+    docstring."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, x, w, gamma, beta)):
+        return _GruCellFunction.apply(h, x, w, gamma, beta, float(eps), bool(two_pass))
+    return _forward(h, x, w, gamma, beta, eps, two_pass)
 
 
 gru_cell.launches = 0

@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_player
 from sheeprl_tpu_torch.config import dotdict
 from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
 from sheeprl_tpu_torch.parallel.transport import make_transport
@@ -108,7 +108,7 @@ def build_dreamer_server(
     fabric = cfg.get("fabric", {}) or {}
     runtime = MeshRuntime(precision=fabric.get("precision", "32-true"), seed=int(cfg.get("seed", 0)), device=device)
     runtime.launch()
-    agent = build_agent(runtime, actions_dim, is_continuous, cfg, obs_space)
+    agent = build_player(runtime, actions_dim, is_continuous, cfg, obs_space)
     if params is not None:
         load_flax_params(agent, params)
     wm_cfg = cfg.algo.world_model

@@ -1,18 +1,31 @@
-"""Carry the JAX package's DreamerV3 player weights into the port's modules.
+"""Carry the JAX package's DreamerV3 state into the port's modules.
 
-``flax_to_torch(tree, agent)`` turns the ``{"world_model": ..., "actor": ...}``
-parameter tree of ``sheeprl_tpu`` (numpy arrays, as a checkpoint holds them)
-into the ``state_dict`` of :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.DreamerPlayer`:
+``flax_to_torch(tree, agent)`` turns a parameter tree of ``sheeprl_tpu``
+(numpy arrays, as a checkpoint holds them) into a ``state_dict``:
+
+- for a :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.DreamerPlayer`,
+  the player tree ``{"world_model": ..., "actor": ...}``; the world model's
+  decoder and reward/continue heads are not served and are skipped;
+- for a :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.DreamerAgent`,
+  the whole ``params`` tree ``{"world_model", "actor", "critic",
+  "target_critic"}``.
+
+Layouts:
 
 - Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
 - Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW;
+- ConvTranspose ``kernel`` (kh, kw, in, out) -> ``ConvTranspose2d.weight``
+  (in, out, kh, kw) flipped in both spatial axes (flax does not flip its
+  transposed-convolution kernel; ``torch`` does);
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
 - ``initial_recurrent_state`` carries over;
 - the GRU's ``Dense_0/kernel`` stays (H + X, 3H), the layout the kernel reads.
 
-The world model's decoder and reward/continue heads are not served and are
-skipped; every other leaf must find its place and every entry of the
-``state_dict`` must be filled, or :class:`ConversionError` is raised.
+Every leaf must find its place and every entry of the ``state_dict`` must
+be filled, or :class:`ConversionError` is raised.  :func:`opt_state_to_torch`
+carries an optax ``clip_by_global_norm`` + ``adam`` state (count, mu, nu)
+into the port's :class:`~sheeprl_tpu_torch.optim.AdamState` through the
+same mapping, and :func:`moments_to_torch` the Moments state.
 """
 
 from __future__ import annotations
@@ -22,7 +35,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["ConversionError", "flax_to_torch", "flatten_tree", "load_flax_params"]
+__all__ = ["ConversionError", "flax_to_torch", "flatten_tree", "load_flax_params", "moments_to_torch", "opt_state_to_torch"]
 
 # world-model subtrees of the JAX tree that the player does not run
 UNSERVED = ("observation_model", "reward_model", "continue_model")
@@ -58,6 +71,8 @@ class _Mapper:
         return path in self.flat
 
     def put(self, key: str, arr: np.ndarray) -> None:
+        if key in self.out:
+            raise ConversionError(f"two leaves map to {key!r}")
         self.out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
     def dense(self, src: str, dst: str) -> None:
@@ -81,47 +96,63 @@ class _Mapper:
             self.dense(f"{src}/Dense_0", f"{dst}.head")
 
 
-def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` for ``agent`` (a ``DreamerPlayer``) from the JAX
-    player tree ``{"world_model": {"encoder", "rssm", ...}, "actor"}``."""
-    if set(tree) != {"world_model", "actor"}:
-        raise ConversionError(f"expected keys world_model and actor, got {sorted(tree)}")
-    wm_tree = {k: v for k, v in tree["world_model"].items() if k not in UNSERVED}
-    flat = flatten_tree({"world_model": wm_tree, "actor": tree["actor"]})
-    m = _Mapper(flat)
-    wm = agent.world_model
-
-    enc = "world_model/encoder/params"
-    if wm.encoder.cnn_encoder is not None:
-        for i in range(len(wm.encoder.cnn_encoder.convs)):
-            dst = f"world_model.encoder.cnn_encoder.convs.{i}"
-            m.put(f"{dst}.weight", m.take(f"{enc}/cnn_encoder/Conv_{i}/kernel").transpose(3, 2, 0, 1))
+def _encoder_rssm(m: _Mapper, wm, src: str, dst: str) -> None:
+    enc = f"{src}/encoder/params"
+    cnn = wm.encoder.cnn_encoder
+    if cnn is not None:
+        for i in range(len(cnn.convs)):
+            out = f"{dst}.encoder.cnn_encoder.convs.{i}"
+            m.put(f"{out}.weight", m.take(f"{enc}/cnn_encoder/Conv_{i}/kernel").transpose(3, 2, 0, 1))
             if m.has(f"{enc}/cnn_encoder/Conv_{i}/bias"):
-                m.put(f"{dst}.bias", m.take(f"{enc}/cnn_encoder/Conv_{i}/bias"))
-            if wm.encoder.cnn_encoder.norms is not None:
-                m.norm(f"{enc}/cnn_encoder/LayerNorm_{i}", f"world_model.encoder.cnn_encoder.norms.{i}")
+                m.put(f"{out}.bias", m.take(f"{enc}/cnn_encoder/Conv_{i}/bias"))
+            if cnn.norms is not None:
+                m.norm(f"{enc}/cnn_encoder/LayerNorm_{i}", f"{dst}.encoder.cnn_encoder.norms.{i}")
     if wm.encoder.mlp_encoder is not None:
-        m.mlp(
-            f"{enc}/mlp_encoder/DreamerMLP_0", "world_model.encoder.mlp_encoder.mlp",
-            len(wm.encoder.mlp_encoder.mlp.layers), head=False,
-        )
+        m.mlp(f"{enc}/mlp_encoder/DreamerMLP_0", f"{dst}.encoder.mlp_encoder.mlp", len(wm.encoder.mlp_encoder.mlp.layers), head=False)
+    rssm, out = f"{src}/rssm/params", f"{dst}.rssm"
+    m.put(f"{out}.initial_recurrent_state", m.take(f"{rssm}/initial_recurrent_state"))
+    m.linear_ln_act(f"{rssm}/recurrent_model/LinearLnAct_0", f"{out}.recurrent_model.mlp")
+    m.put(f"{out}.recurrent_model.gru.weight", m.take(f"{rssm}/recurrent_model/LayerNormGRUCell_0/Dense_0/kernel"))
+    m.norm(f"{rssm}/recurrent_model/LayerNormGRUCell_0/LayerNorm_0", f"{out}.recurrent_model.gru.norm")
+    m.mlp(f"{rssm}/representation_model", f"{out}.representation_model", 1, head=True)
+    m.mlp(f"{rssm}/transition_model", f"{out}.transition_model", 1, head=True)
 
-    rssm = "world_model/rssm/params"
-    m.put("world_model.rssm.initial_recurrent_state", m.take(f"{rssm}/initial_recurrent_state"))
-    m.linear_ln_act(f"{rssm}/recurrent_model/LinearLnAct_0", "world_model.rssm.recurrent_model.mlp")
-    m.put("world_model.rssm.recurrent_model.gru.weight", m.take(f"{rssm}/recurrent_model/LayerNormGRUCell_0/Dense_0/kernel"))
-    m.norm(f"{rssm}/recurrent_model/LayerNormGRUCell_0/LayerNorm_0", "world_model.rssm.recurrent_model.gru.norm")
-    m.mlp(f"{rssm}/representation_model", "world_model.rssm.representation_model", 1, head=True)
-    m.mlp(f"{rssm}/transition_model", "world_model.rssm.transition_model", 1, head=True)
 
-    m.mlp("actor/params", "actor.trunk", len(agent.actor.trunk.layers), head=False)
-    for i in range(len(agent.actor.heads)):
-        m.dense(f"actor/params/Dense_{i}", f"actor.heads.{i}")
+def _training_heads(m: _Mapper, wm, src: str, dst: str) -> None:
+    """Observation, reward and continue models."""
+    obs = f"{src}/observation_model/params"
+    cnn = wm.observation_model.cnn_decoder
+    if cnn is not None:
+        out = f"{dst}.observation_model.cnn_decoder"
+        m.dense(f"{obs}/cnn_decoder/Dense_0", f"{out}.dense")
+        for i in range(len(cnn.deconvs)):
+            kernel = m.take(f"{obs}/cnn_decoder/ConvTranspose_{i}/kernel")
+            m.put(f"{out}.deconvs.{i}.weight", kernel[::-1, ::-1].transpose(2, 3, 0, 1))
+            if m.has(f"{obs}/cnn_decoder/ConvTranspose_{i}/bias"):
+                m.put(f"{out}.deconvs.{i}.bias", m.take(f"{obs}/cnn_decoder/ConvTranspose_{i}/bias"))
+        if cnn.norms is not None:
+            for i in range(len(cnn.norms)):
+                m.norm(f"{obs}/cnn_decoder/LayerNorm_{i}", f"{out}.norms.{i}")
+    mlp = wm.observation_model.mlp_decoder
+    if mlp is not None:
+        out = f"{dst}.observation_model.mlp_decoder"
+        m.mlp(f"{obs}/mlp_decoder/DreamerMLP_0", f"{out}.mlp", len(mlp.mlp.layers), head=False)
+        for i in range(len(mlp.heads)):
+            m.dense(f"{obs}/mlp_decoder/Dense_{i}", f"{out}.heads.{i}")
+    m.mlp(f"{src}/reward_model/params", f"{dst}.reward_model", len(wm.reward_model.layers), head=True)
+    m.mlp(f"{src}/continue_model/params", f"{dst}.continue_model", len(wm.continue_model.layers), head=True)
 
-    unknown = sorted(set(flat) - m.used)
+
+def _actor(m: _Mapper, actor, src: str, dst: str) -> None:
+    m.mlp(f"{src}/params", f"{dst}.trunk", len(actor.trunk.layers), head=False)
+    for i in range(len(actor.heads)):
+        m.dense(f"{src}/params/Dense_{i}", f"{dst}.heads.{i}")
+
+
+def _finish(m: _Mapper, want: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    unknown = sorted(set(m.flat) - m.used)
     if unknown:
         raise ConversionError(f"flax leaves with no place in the port: {unknown[:8]}")
-    want = agent.state_dict()
     missing = sorted(set(want) - set(m.out))
     if missing:
         raise ConversionError(f"port parameters the tree does not fill: {missing[:8]}")
@@ -131,6 +162,79 @@ def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, tor
         if tuple(want[k].shape) != tuple(v.shape):
             raise ConversionError(f"{k}: flax gives {tuple(v.shape)}, the port holds {tuple(want[k].shape)}")
     return m.out
+
+
+def _is_full_agent(agent: torch.nn.Module) -> bool:
+    return hasattr(agent, "critic")
+
+
+def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` for ``agent`` (a ``DreamerPlayer`` or a
+    ``DreamerAgent``) from the JAX tree described in the module docstring."""
+    full = _is_full_agent(agent)
+    expect = {"world_model", "actor", "critic", "target_critic"} if full else {"world_model", "actor"}
+    if set(tree) != expect:
+        raise ConversionError(f"expected keys {sorted(expect)}, got {sorted(tree)}")
+    if full:
+        flat = flatten_tree(tree)
+    else:
+        wm_tree = {k: v for k, v in tree["world_model"].items() if k not in UNSERVED}
+        flat = flatten_tree({"world_model": wm_tree, "actor": tree["actor"]})
+    m = _Mapper(flat)
+    wm = agent.world_model
+    _encoder_rssm(m, wm, "world_model", "world_model")
+    if full:
+        _training_heads(m, wm, "world_model", "world_model")
+        for name in ("critic", "target_critic"):
+            m.mlp(f"{name}/params", name, len(getattr(agent, name).layers), head=True)
+    _actor(m, agent.actor, "actor", "actor")
+    return _finish(m, agent.state_dict())
+
+
+def _group_params(tree: Dict[str, Any], module: torch.nn.Module, group: str) -> Dict[str, torch.Tensor]:
+    """One optimizer group's tree (world_model, actor or critic) in the
+    layout of ``module.named_parameters()``."""
+    m = _Mapper(flatten_tree({group: tree}))
+    if group == "world_model":
+        _encoder_rssm(m, module, group, group)
+        _training_heads(m, module, group, group)
+    elif group == "actor":
+        _actor(m, module, group, group)
+    else:
+        m.mlp(f"{group}/params", group, len(module.layers), head=True)
+    want = {f"{group}.{k}": v for k, v in module.named_parameters()}
+    return {k[len(group) + 1 :]: v for k, v in _finish(m, want).items()}
+
+
+def _adam_leaf(state: Any) -> Any:
+    """The ``ScaleByAdamState`` inside an optax chain state."""
+    if hasattr(state, "mu") and hasattr(state, "nu") and hasattr(state, "count"):
+        return state
+    if isinstance(state, tuple):
+        for item in state:
+            found = _adam_leaf(item)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_to_torch(state: Any, module: torch.nn.Module, group: str, device=None):
+    """An optax ``chain(clip_by_global_norm, adam)`` state of one group as
+    the port's :class:`~sheeprl_tpu_torch.optim.AdamState` for ``module``'s
+    parameters."""
+    from sheeprl_tpu_torch.optim import AdamState
+
+    adam = _adam_leaf(state)
+    if adam is None:
+        raise ConversionError(f"no Adam state (count, mu, nu) in the {group} optimizer state")
+    dev = next(module.parameters()).device if device is None else device
+    mu = {k: v.to(dev) for k, v in _group_params(adam.mu, module, group).items()}
+    nu = {k: v.to(dev) for k, v in _group_params(adam.nu, module, group).items()}
+    return AdamState(int(np.asarray(adam.count)), mu, nu)
+
+
+def moments_to_torch(state: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(float(np.asarray(state[k])), dtype=torch.float32, device=device) for k in ("low", "high")}
 
 
 def load_flax_params(agent: torch.nn.Module, tree: Dict[str, Any]) -> torch.nn.Module:

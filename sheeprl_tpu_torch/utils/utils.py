@@ -2,13 +2,59 @@
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-__all__ = ["symlog", "resolve_device"]
+import torch
+import torch.nn.functional as F
+
+__all__ = ["lambda_values", "resolve_device", "symexp", "symlog", "two_hot_encoder"]
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.log1p(torch.abs(x))
+
+
+def symexp(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * (torch.exp(torch.abs(x)) - 1.0)
+
+
+def two_hot_encoder(x: torch.Tensor, support_range: int = 300, num_buckets: Optional[int] = None) -> torch.Tensor:
+    """Two-hot encoding of ``x`` (..., 1) over ``num_buckets`` bins evenly
+    spanning ``[-support_range, support_range]``: (..., num_buckets).
+    The caller applies symlog.  Closed form over the uniform support, as
+    the JAX package computes it (no comparison broadcast)."""
+    if num_buckets is None:
+        num_buckets = support_range * 2 + 1
+    x = torch.clamp(x, -support_range, support_range)
+    step = (2.0 * support_range) / (num_buckets - 1)
+    below = torch.floor((x + support_range) / step).to(torch.int64).clamp(0, num_buckets - 1)
+    above = (below + 1).clamp(0, num_buckets - 1)
+    sup_below = -support_range + below.to(x.dtype) * step
+    sup_above = -support_range + above.to(x.dtype) * step
+    equal = below == above
+    dist_below = torch.where(equal, torch.ones_like(x), torch.abs(sup_below - x))
+    dist_above = torch.where(equal, torch.ones_like(x), torch.abs(sup_above - x))
+    total = dist_below + dist_above
+    w_below = dist_above / total
+    w_above = dist_below / total
+    oh_below = F.one_hot(below.squeeze(-1), num_buckets).to(x.dtype) * w_below
+    oh_above = F.one_hot(above.squeeze(-1), num_buckets).to(x.dtype) * w_above
+    return oh_below + oh_above
+
+
+def lambda_values(
+    rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor, lmbda: float = 0.95
+) -> torch.Tensor:
+    """TD(lambda) returns over (T, B, 1) inputs, ``continues`` already
+    scaled by gamma: ``R[t] = r[t] + c[t]((1 - lambda) v[t] + lambda R[t+1])``
+    seeded with ``R[T] = v[T-1]`` (the JAX package's reverse scan)."""
+    interm = rewards + continues * values * (1 - lmbda)
+    carry = values[-1]
+    out = []
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        carry = interm[t] + continues[t] * lmbda * carry
+        out.append(carry)
+    return torch.stack(out[::-1], 0)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -73,7 +73,7 @@ def tiny_pair(actions_dim=(3, 2), continuous=False, fused=False, extra=()):
     wm, actor, _, params = jax_agent.build_agent(rt, actions_dim, continuous, cfg_j, OBS_SPACE)
     params = {"world_model": params["world_model"], "actor": params["actor"]}
     cfg_t = port_compose(overrides=overrides)
-    agent = port_agent.build_agent(MeshRuntime(device="cpu", seed=0).launch(), actions_dim, continuous, cfg_t, OBS_SPACE)
+    agent = port_agent.build_player(MeshRuntime(device="cpu", seed=0).launch(), actions_dim, continuous, cfg_t, OBS_SPACE)
     load_flax_params(agent, jax.tree_util.tree_map(np.asarray, params))
     return {"wm": wm, "actor": actor, "params": params, "agent": agent, "cfg": cfg_t}
 

@@ -246,12 +246,17 @@ def _get(cfg, path):
 
 
 def test_chip_smoke_config_is_the_composed_xl_crafter():
-    """The dict chip_smoke.py serves equals the port's composed
-    ``exp=dreamer_v3_XL_crafter`` (fused GRU) on every key it sets, and the
-    port composes the same values as the JAX package there."""
+    """The dict chip_smoke.py serves and trains with equals the port's
+    composed ``exp=dreamer_v3_XL_crafter`` (fused GRU, device replay cache,
+    the gather kernel, no memmap) on every key it sets, training sizes
+    included, and the port composes the same values as the JAX package
+    there."""
     from chip_smoke import CRAFTER_ACTIONS, CRAFTER_OBS, XL_CRAFTER
 
-    overrides = ["exp=dreamer_v3_XL_crafter", "algo.world_model.recurrent_model.fused=True"]
+    overrides = [
+        "exp=dreamer_v3_XL_crafter", "algo.world_model.recurrent_model.fused=True",
+        "buffer.device_cache=True", "buffer.per_kernel=pallas", "buffer.memmap=False",
+    ]
     port, ref = port_compose(overrides=overrides), jax_compose(overrides=overrides)
     for path, value in _leaves(XL_CRAFTER):
         assert _get(port, path) == value, path
