@@ -17,7 +17,17 @@ random weights drawn from a seed):
   Crafter-shaped transitions (host buffer, then the device cache), three
   gradient steps with the fused GRU kernel and the window-gather kernel,
   then the same steps from the same state with the plain GRU and
-  ``buffer.per_kernel=lax``.
+  ``buffer.per_kernel=lax``; then prioritized sequence starts
+  (``buffer.prioritized=True``) through the sum-tree kernels against the
+  plain tree, and one XL train step on a prioritized draw;
+- SAC: three dispatches of G = 64 gradient steps of B = 256 (DMC
+  walker-walk shapes, 1,000,000 transitions of prioritized replay at full
+  size) through ``train_dispatch`` with the sum-tree and transition-gather
+  kernels, then again from the same state with ``per_kernel=lax``.
+
+Before the paths it checks the sum-tree kernels (sample, write, update) on a
+1,000,000-leaf tree and the transition gather, each against its plain
+version.
 
 It prints one line per phase.  The line before the last is a JSON object
 with each kernel's numbers; the last line is ``{"ok": true, "device":
@@ -122,7 +132,10 @@ XL_CRAFTER = {
             bins=255, per_rank_target_network_update_freq=1, tau=0.02, clip_gradients=100.0, optimizer=_adam(8e-5, 1e-5)
         ),
     },
-    "buffer": {"size": 1000000, "memmap": False, "device_cache": True, "per_kernel": "pallas", "prioritized": False},
+    "buffer": {
+        "size": 1000000, "memmap": False, "device_cache": True, "per_kernel": "pallas", "prioritized": False,
+        "per_alpha": 0.6, "per_eps": 1e-6, "per_decay_on_sample": 0.5,
+    },
 }
 CRAFTER_OBS = {"rgb": (64, 64, 3), "reward": (1,)}
 CRAFTER_ACTIONS = (17,)
@@ -158,6 +171,46 @@ LOSS_ATOL = 1e-4
 # Adam moves each weight by about lr (<= 1e-4) a step whatever the gradient's
 # size, so a sign that differs moves a weight by 2 lr: 3 steps, 2 runs
 PARAM_ATOL = 1e-3
+
+# SAC on DMC walker-walk, as the port composes `exp=sac_dmc_walker_walk
+# buffer.prioritized=True buffer.per_kernel=pallas buffer.device_cache=True
+# buffer.memmap=False fabric.precision=32-true` (a CPU test pins the two
+# together): the keys build_agent, the train function and the dispatch read.
+SAC_WALKER = {
+    "seed": 5,
+    "env": {"num_envs": 4},
+    "fabric": {"precision": "32-true"},
+    "algo": {
+        "name": "sac",
+        "total_steps": 500000,
+        "per_rank_batch_size": 256,
+        "dispatch_batch": 64,
+        "gamma": 0.99,
+        "tau": 0.005,
+        "hidden_size": 256,
+        "mlp_keys": {"encoder": ["state"]},
+        "actor": {"hidden_size": 256, "optimizer": _adam(3e-4, 1e-4)},
+        "critic": {"n": 2, "hidden_size": 256, "target_network_frequency": 1, "optimizer": _adam(3e-4, 1e-4)},
+        "alpha": {"alpha": 1.0, "optimizer": _adam(3e-4, 1e-4)},
+    },
+    "buffer": {
+        "size": 1000000, "memmap": False, "device_cache": True, "per_kernel": "pallas", "prioritized": True,
+        "sample_next_obs": False, "per_alpha": 0.6, "per_beta": 0.4, "per_beta_end": 1.0, "per_eps": 1e-6,
+        "per_decay_on_sample": 0.5,
+    },
+}
+WALKER_OBS, WALKER_ACTIONS = 24, 6
+SAC_DISPATCHES = 3
+# kernels vs per_kernel=lax, from the same state with the same draws: the
+# draws are identical (no exclusions on this path: op for op the lax
+# descent) and the batches bytes equal, so both runs compute the same
+# torch ops on the same data; cuBLAS may still pick another reduction order
+SAC_LOSS_RTOL = 1e-5
+SAC_PARAM_ATOL = 1e-6  # a three-hundredth of one Adam step (lr 3e-4)
+SAC_TREE_RTOL = 1e-5
+# the sum-tree phase: the SAC dispatch's draws on the full-size tree
+TREE_LEAVES, TREE_DRAWS = 1000000, 16384
+W_RTOL = 1e-6  # IS weights: powf on the card against torch's pow
 
 
 def phase(tag: str, **fields) -> None:
@@ -563,7 +616,8 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
     step and one draw each, as the env loop makes them) with the kernels,
     then the same calls from the same state with the plain GRU and
     ``per_kernel=lax``.  The launch counters are set to 0 just before the
-    kernel run and read just after it."""
+    kernel run and read just after it.  Then path B on the same replay
+    (:func:`prioritized_starts`), under ``res["per"]``."""
     import numpy as np
     import torch
 
@@ -665,6 +719,517 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
         "max_memory_allocated_plain": plain["max_memory_allocated"],
         "gather": gather_row,
     }
+    res["per"] = prioritized_starts(cfg, runtime, agent, rb, actions_dim)
+    return res
+
+
+# ------------------------------------------------------------------ sum tree
+def tree_from_leaves(leaves, device):
+    """A ``PriorityTree`` holding ``leaves`` (internal nodes rebuilt on the host)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.replay.priority_tree import PriorityTree
+
+    tree = PriorityTree(len(leaves), device=device)
+    tree.load_state_dict({"leaves": leaves, "max_priority": np.float32(1.0)})
+    return tree
+
+
+def descent_bytes(torch, leaf, depth: int, n_excl: int) -> int:
+    """What the draws that ended at ``leaf`` read and wrote: the distinct
+    32-byte sectors holding the left child of every node on their paths and
+    their leaves, the uniforms, the exclusions and the two outputs."""
+    node = leaf.long() + (1 << depth)
+    idx = [node] + [(node >> k) << 1 for k in range(1, depth + 1)]
+    sectors = torch.unique(torch.cat(idx) // 8).numel()
+    return 32 * sectors + 12 * leaf.numel() + 5 * n_excl
+
+
+def write_bytes(torch, leaf, active, depth: int, update: bool) -> int:
+    """What a write reads and writes: 4 bytes for every distinct node its
+    active lanes' paths write (leaves and ancestors) or read (the children
+    of the rebuilt nodes), and each lane's leaf, value and flag."""
+    p = 1 << depth
+    node = leaf[active].long() + p
+    written = torch.unique(torch.cat([node >> k for k in range(depth + 1)]))
+    parents = written[written < p]
+    touched = torch.unique(torch.cat([written, 2 * parents, 2 * parents + 1])).numel()
+    return 4 * touched + 9 * leaf.numel() + (8 if update else 0)
+
+
+def bound(nbytes: float, flops: float = 0.0) -> tuple:
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_sum_tree_kernels(torch) -> dict:
+    """The three sum-tree kernels against their plain versions on a
+    1,000,000-leaf tree (P = 2^20), at the SAC dispatch's n = 16,384 draws:
+    sample with 0, 4 and 63 exclusions on integer-valued priorities (leaves
+    identical) and on random f32 ones (flips counted; none without
+    exclusions); writes with equal duplicates, unequal active duplicates and
+    inactive lanes (slots 1.. bit-equal); an update (tree and running max
+    equal).  Returns one timing row per kernel at its main-path shape."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.ops import per
+
+    rng = np.random.default_rng(3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    trees = {
+        "integer": tree_from_leaves(rng.integers(0, 9, TREE_LEAVES).astype(np.float32), "cuda"),
+        "f32": tree_from_leaves((rng.random(TREE_LEAVES) + 0.01).astype(np.float32), "cuda"),
+    }
+    depth = trees["f32"].depth
+    p = 1 << depth
+    n = TREE_DRAWS
+    r01 = torch.rand(n, generator=g, device="cuda")
+    rows = {}
+    for n_excl in (0, 4, 63):
+        excl = None
+        if n_excl:
+            excl = torch.from_numpy(rng.choice(TREE_LEAVES, n_excl, replace=False).astype(np.int32)).cuda()
+        checks = {}
+        for label, t in trees.items():
+            leaf, w = per.sum_tree_sample(t.tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
+            leaf_p, w_p = per.sum_tree_sample_plain(t.tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
+            torch.cuda.synchronize()
+            same = leaf == leaf_p
+            flips = int((~same).sum())
+            w_err = float(((w - w_p).abs() / w_p.abs())[same].max())
+            if flips and (label == "integer" or not n_excl):
+                raise AssertionError(f"sum_tree_sample E={n_excl} {label}: {flips} draws differ from the plain version")
+            if w_err > W_RTOL:
+                raise AssertionError(f"sum_tree_sample E={n_excl} {label}: weights differ by {w_err} > {W_RTOL}")
+            if excl is not None and bool(torch.isin(leaf, excl).any()):
+                raise AssertionError(f"sum_tree_sample E={n_excl}: an excluded leaf was drawn")
+            if int(leaf.max()) >= TREE_LEAVES:
+                raise AssertionError("sum_tree_sample drew a padded leaf")
+            checks[label] = {"flips": flips, "max_rel_err_w": w_err, "max_abs_err_w": float((w - w_p).abs()[same].max())}
+        tree = trees["f32"].tree
+        leaves_t = tree[p : p + TREE_LEAVES]
+
+        def kernel():
+            return per.sum_tree_sample(tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
+
+        def plain():
+            return per.sum_tree_sample_plain(tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
+
+        def library():  # the inverse-CDF draw, two calls, no exclusions or weights
+            cdf = torch.cumsum(leaves_t, 0)
+            return torch.searchsorted(cdf, r01 * cdf[-1], right=True)
+
+        leaf = kernel()[0]
+        nbytes = descent_bytes(torch, leaf, depth, n_excl)
+        b_ms, b_by = bound(nbytes, n * depth * (3 + 2 * n_excl))
+        row = {
+            "draws": n, "leaves": TREE_LEAVES, "exclusions": n_excl, "checks": checks,
+            "max_abs_err": max(c["max_abs_err_w"] for c in checks.values()),
+            "ms": time_ms(torch, kernel, iters=50), "plain_ms": time_ms(torch, plain, iters=10),
+            "library_ms": time_ms(torch, library, iters=50), "device_ms": device_ms(torch, kernel),
+            "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        phase("sum_tree_sample", **row)
+        rows[f"sample_e{n_excl}"] = row
+
+    base = trees["f32"].tree
+    lanes = TREE_DRAWS
+    leaf_idx = torch.randint(0, TREE_LEAVES, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+    leaf_idx[lanes // 2 : lanes // 2 + 2048] = leaf_idx[:2048]  # duplicates ...
+    vals = torch.rand(lanes, generator=g, device="cuda") * 3
+    vals[lanes // 2 : lanes // 2 + 1024] = vals[:1024]  # ... half of them with equal values
+    active = torch.rand(lanes, generator=g, device="cuda") < 0.7
+    a, b = base.clone(), base.clone()
+    owner = per.owner_scratch(depth, "cuda")  # kept across calls, as PriorityTree keeps it
+    per.sum_tree_write(a, leaf_idx, vals, active, depth=depth, owner=owner)
+    per.sum_tree_write_plain(b, leaf_idx, vals, active, depth=depth)
+    ma = per.sum_tree_update(a, torch.tensor(2.0, device="cuda"), leaf_idx, vals * 0.5, active, depth=depth, owner=owner)
+    mb = per.sum_tree_update_plain(b, torch.tensor(2.0, device="cuda"), leaf_idx, vals * 0.5, active, depth=depth)
+    torch.cuda.synchronize()
+    if not torch.equal(a[1:], b[1:]) or float(ma) != float(mb):
+        raise AssertionError("sum_tree_write/update: tree or running max differ from the plain version")
+    if not bool((owner == -1).all()):
+        raise AssertionError("sum_tree_write/update: the owner scratch was left dirty")
+    scratch = base.clone()
+    # the write at the SAC flush's shape: 64 rows x 4 envs seeded at the running max
+    flush_leaf = torch.arange(256, device="cuda", dtype=torch.int32) + TREE_LEAVES // 8
+    flush_val = torch.full((256,), 1.5, device="cuda")
+    flush_act = torch.ones(256, dtype=torch.bool, device="cuda")
+    for name, fn, plain_fn, args, lane_act, upd in (
+        ("sum_tree_write", per.sum_tree_write, per.sum_tree_write_plain, (flush_leaf, flush_val, flush_act), flush_act, False),
+        ("sum_tree_update", per.sum_tree_update, per.sum_tree_update_plain, (leaf_idx, vals, active), active, True),
+    ):
+        call_args = ((torch.tensor(1.0, device="cuda"),) if upd else ()) + args
+        nbytes = write_bytes(torch, args[0], lane_act, depth, upd)
+        b_ms, b_by = bound(nbytes)
+        row = {
+            "lanes": int(args[0].numel()), "active": int(lane_act.sum()), "duplicates": 0 if not upd else 2048,
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: fn(scratch, *call_args, depth=depth, owner=owner), iters=50),
+            "plain_ms": time_ms(torch, lambda: plain_fn(scratch, *call_args, depth=depth), iters=10),
+            "library_ms": None,
+            "device_ms": device_ms(torch, lambda: fn(scratch, *call_args, depth=depth, owner=owner)),
+            "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        phase(name, **row)
+        rows[name] = row
+    del trees, scratch, a, b
+    return rows
+
+
+def check_transitions_gather(torch) -> dict:
+    """The transition gather against its plain version, bytes exact: uint8
+    and f32 rows of 1, 4, 24 and 96 bytes and a key with no feature axis,
+    successor rows that wrap the ring, with and without next keys, all keys
+    in one launch."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cap, n_envs, flat = 97, 3, 1000
+    bufs = {"flag": torch.randint(0, 2, (cap, n_envs), generator=g, device="cuda", dtype=torch.uint8)}
+    for dtype in (torch.uint8, torch.float32):
+        for nbytes in (1, 4, 24, 96):
+            elems = nbytes // torch.tensor([], dtype=dtype).element_size()
+            if elems:
+                ring = torch.randint(0, 255, (cap, n_envs, elems), generator=g, device="cuda").to(dtype)
+                bufs[f"{str(dtype)[6:]}_{nbytes}"] = ring if dtype == torch.uint8 else ring + torch.rand(ring.shape, generator=g, device="cuda")
+    rows = torch.randint(0, cap, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    rows[:8] = cap - 1
+    envs = torch.randint(0, n_envs, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
+
+    for next_keys in ((), tuple(bufs)):
+        out = gather_transitions(bufs, rows, envs, next_keys=next_keys)
+        ref = gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
+        torch.cuda.synchronize()
+        for k in ref:
+            if out[k].dtype != ref[k].dtype or not torch.equal(out[k], ref[k]):
+                raise AssertionError(f"gather_transitions '{k}' (next keys {len(next_keys)}): not byte-identical")
+    res = {"keys": {k: [str(v.dtype)[6:], v[0, 0].numel() * v.element_size()] for k, v in bufs.items()},
+           "rows": flat, "next_keys": [0, len(bufs)], "bytes_exact": True}
+    phase("gather_transitions_check", **res)
+    return res
+
+
+def time_transitions_gather(torch, cache, leaves) -> dict:
+    """The transition gather at the SAC dispatch's shape (one draw's rows on
+    the full-size rings): kernel, plain version, per-key ``index_select``."""
+    from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
+
+    bufs = cache.buffers
+    flat_leaves = leaves.reshape(-1).long()
+    rows = (flat_leaves // cache.n_envs).to(torch.int32).contiguous()
+    envs = (flat_leaves % cache.n_envs).to(torch.int32).contiguous()
+    flat = {k: v.reshape(cache.capacity * cache.n_envs, -1) for k, v in bufs.items()}
+    row_bytes = sum(v[0, 0].numel() * v.element_size() for v in bufs.values())
+    n = int(rows.numel())
+    out = gather_transitions(bufs, rows, envs)
+    ref = gather_transitions_plain(bufs, rows, envs)
+    torch.cuda.synchronize()
+    if any(not torch.equal(out[k], ref[k]) for k in ref):
+        raise AssertionError("gather_transitions: not byte-identical at the SAC shape")
+    b_ms, b_by = bound(2 * n * row_bytes + 8 * n)
+    res = {
+        "rows": n, "row_bytes": row_bytes, "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: gather_transitions(bufs, rows, envs), iters=50),
+        "plain_ms": time_ms(torch, lambda: gather_transitions_plain(bufs, rows, envs), iters=50),
+        "library_ms": time_ms(torch, lambda: [v.index_select(0, flat_leaves) for v in flat.values()], iters=50),
+        "device_ms": device_ms(torch, lambda: gather_transitions(bufs, rows, envs)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    phase("gather_transitions", **res)
+    return res
+
+
+# ------------------------------------------------------------------ SAC
+class _Space:
+    def __init__(self, shape, low=None, high=None):
+        self.shape = tuple(shape)
+        self.low, self.high = low, high
+
+
+def walker_transitions(rng, rows: int, n_envs: int, t0: int = 0) -> dict:
+    """Seeded transitions shaped like DMC walker-walk's, in the layout SAC's
+    ``main`` stores: 24-d observations and next observations, 6 actions in
+    [-1, 1], f32 rewards, uint8 terminated/truncated (an episode every 1000
+    steps)."""
+    import numpy as np
+
+    obs = rng.standard_normal((rows, n_envs, WALKER_OBS), dtype=np.float32)
+    steps = np.arange(t0, t0 + rows)[:, None, None]
+    return {
+        "terminated": np.zeros((rows, n_envs, 1), np.uint8),
+        "truncated": np.broadcast_to(steps % 1000 == 999, (rows, n_envs, 1)).astype(np.uint8),
+        "actions": rng.uniform(-1, 1, (rows, n_envs, WALKER_ACTIONS)).astype(np.float32),
+        "observations": obs,
+        "next_observations": obs + 0.05 * rng.standard_normal(obs.shape, dtype=np.float32),
+        "rewards": rng.random((rows, n_envs, 1), dtype=np.float32),
+    }
+
+
+def fill_walker_replay(cfg, runtime, capacity: int, *, seed: int = 5, chunk: int = 25000, windows: int = 2) -> tuple:
+    """The SAC replay at its real size: the host ``ReplayBuffer.add`` of more
+    rows than fit (the ring wraps), the cache from
+    ``maybe_create_for_transitions`` (``load_from_replay``: the rings and
+    every stored cell at priority 1), ``load_priority_state(None)``, then
+    ``windows`` windowed adds of ``dispatch_batch`` rows as the env loop's
+    flush makes them (seeded at the running max through the write kernel).
+    Raises unless the rings equal the host buffer byte for byte."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+    from sheeprl_tpu_torch.data.device_buffer import maybe_create_for_transitions
+
+    n_envs = int(cfg.env.num_envs)
+    rng = np.random.default_rng(seed)
+    rb = ReplayBuffer(capacity, n_envs, obs_keys=("observations",))
+    t0 = time.perf_counter()
+    total = capacity + capacity // 50
+    for start in range(0, total, chunk):
+        rb.add(walker_transitions(rng, min(chunk, total - start), n_envs, start))
+    cache = maybe_create_for_transitions(cfg, runtime, rb)
+    cache.load_priority_state(None)
+    step = total
+    for _ in range(windows):
+        w = walker_transitions(rng, int(cfg.algo.dispatch_batch), n_envs, step)
+        step += int(cfg.algo.dispatch_batch)
+        rb.add(w)
+        cache.add(w)
+    if runtime.device.type != "cpu":
+        torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    for k, ring in cache.buffers.items():
+        if not torch.equal(ring, torch.from_numpy(np.ascontiguousarray(rb.buffer[k])).to(ring.device)):
+            raise AssertionError(f"device ring '{k}' differs from the host buffer")
+    if int(cache._pos[0]) != rb._pos:
+        raise AssertionError("device cache and host buffer write heads differ")
+    return rb, cache, step, {
+        "rows": capacity, "envs": n_envs, "written": step * n_envs, "fill_s": fill_s,
+        "ring_bytes": sum(t.numel() * t.element_size() for t in cache.buffers.values()),
+        "tree_leaves": cache.tree.n_leaves, "tree_depth": cache.tree.depth, "tree_total": cache.tree.total,
+    }
+
+
+def run_sac(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, profile: bool = True) -> dict:
+    """The SAC phase: the walker replay of :func:`fill_walker_replay`, the
+    agent from ``cfg.seed``, ``dispatches`` calls of ``train_dispatch`` (each
+    first flushing ``dispatch_batch`` pending env rows, then G = 64 steps of
+    B = 256 on one prioritized draw) with the kernels, then the same calls
+    from the same state with ``per_kernel=lax``.  The launch counters are
+    set to 0 just before the kernel run and read just after it."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac.sac import make_train_state, train_dispatch
+    from sheeprl_tpu_torch.ops import per
+    from sheeprl_tpu_torch.ops.gather import gather_transitions
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.replay import per_beta_schedule
+
+    n_envs = int(cfg.env.num_envs)
+    capacity = capacity or int(cfg.buffer.size) // n_envs
+    runtime = MeshRuntime(device=device, precision=cfg.fabric.precision, seed=int(cfg.seed)).launch()
+    rb, cache, written, fill = fill_walker_replay(cfg, runtime, capacity)
+    phase("sac_replay_fill", **fill)
+    ones = np.ones(WALKER_ACTIONS, np.float32)
+    agent, target_entropy = build_agent(
+        runtime, cfg, {"state": _Space((WALKER_OBS,))}, _Space((WALKER_ACTIONS,), -ones, ones)
+    )
+    initial = copy.deepcopy(agent.state_dict())
+    # each run starts from this replay state: the dispatches' flushes overwrite rows
+    rings0 = {k: v.clone() for k, v in cache.buffers.items()}
+    tree0, max0 = cache.tree.tree.clone(), cache.tree.max_priority.clone()
+    pos0, filled0 = cache._pos.copy(), cache._filled.copy()
+    g = int(cfg.algo.dispatch_batch)
+    batch = int(cfg.algo.per_rank_batch_size)
+    ema_every = int(cfg.algo.critic.target_network_frequency) // n_envs + 1
+    beta_fn = per_beta_schedule(cfg.buffer.per_beta, cfg.buffer.per_beta_end, int(cfg.algo.total_steps))
+    windows = [walker_transitions(np.random.default_rng(100 + d), g, n_envs, written + d * g) for d in range(dispatches)]
+    counters = (per.sum_tree_sample, per.sum_tree_write, per.sum_tree_update, gather_transitions)
+
+    def run(kernels: bool, n: int) -> dict:
+        agent.load_state_dict(initial)
+        cache.kernel = "pallas" if kernels else "lax"
+        for k, ring in cache.buffers.items():
+            ring.copy_(rings0[k])
+        cache.tree.tree.copy_(tree0)
+        cache.tree.max_priority = max0.clone()
+        cache._pos[:], cache._filled[:] = pos0, filled0
+        state = make_train_state(runtime, agent, cfg, target_entropy, prioritized=True)
+        gen = torch.Generator(device=device).manual_seed(int(cfg.seed))
+        leaves, metrics, ms = [], [], []
+        inner = cache.sample_transitions_per
+
+        def recording(*a, **kw):
+            out, idx = inner(*a, **kw)
+            leaves.append(idx.clone())
+            return out, idx
+
+        cache.sample_transitions_per = recording
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        try:
+            for d in range(n):
+                pending = [{k: v[i : i + 1] for k, v in windows[d].items()} for i in range(g)]
+                iters = range(written + d * g, written + (d + 1) * g)
+                policy_step = (written + (d + 1) * g) * n_envs
+                t0 = time.perf_counter()
+                m = train_dispatch(state, rb, cache, cfg, [it % ema_every == 0 for it in iters], policy_step, beta_fn, pending, gen)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            del cache.sample_transitions_per
+        launches = {c.__name__: c.launches for c in counters}
+        for i, mm in enumerate(metrics):
+            bad = [k for k, v in mm.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"SAC dispatch {i}: non-finite {bad}")
+        return {
+            "metrics": metrics, "ms": ms, "launches": launches, "leaves": leaves,
+            "params": {k: v.detach().clone() for k, v in agent.state_dict().items()},
+            "tree": cache.tree.tree.clone(), "max_priority": float(cache.tree.max_priority),
+            "max_memory_allocated": torch.cuda.max_memory_allocated() if device != "cpu" else None,
+            "state": state,
+        }
+
+    run(False, 1)  # warm both paths' per-shape state
+    run(True, 1)
+    fast = run(True, dispatches)
+    plain = run(False, dispatches)
+    if device != "cpu":
+        want = {"sum_tree_sample": dispatches, "sum_tree_write": dispatches, "sum_tree_update": dispatches,
+                "gather_transitions": dispatches}
+        if fast["launches"] != want:
+            raise AssertionError(f"SAC kernel launches {fast['launches']}, want {want}")
+        if any(plain["launches"].values()):
+            raise AssertionError(f"per_kernel=lax launched kernels: {plain['launches']}")
+    for d, (a, b) in enumerate(zip(fast["leaves"], plain["leaves"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"SAC dispatch {d}: {int((a != b).sum())} sampled leaves differ between the kernels and lax")
+    worst_loss = {}
+    for d, (a, b) in enumerate(zip(fast["metrics"], plain["metrics"])):
+        for k in a:
+            diff = abs(a[k] - b[k])
+            if diff > SAC_LOSS_RTOL * abs(b[k]) + 1e-7:
+                raise AssertionError(f"SAC dispatch {d} {k}: kernels {a[k]} vs lax {b[k]} (rtol {SAC_LOSS_RTOL})")
+            worst_loss[k] = max(worst_loss.get(k, 0.0), diff / max(abs(b[k]), 1e-30))
+    worst_param = max(float((fast["params"][k] - plain["params"][k]).abs().max()) for k in fast["params"])
+    if worst_param > SAC_PARAM_ATOL:
+        raise AssertionError(f"SAC parameters differ by {worst_param} > {SAC_PARAM_ATOL}")
+    tree_err = float(((fast["tree"] - plain["tree"]).abs() / plain["tree"].abs().clamp_min(1e-30))[1:].max())
+    if tree_err > SAC_TREE_RTOL or abs(fast["max_priority"] - plain["max_priority"]) > SAC_TREE_RTOL * plain["max_priority"]:
+        raise AssertionError(f"SAC trees differ by {tree_err} (max priority {fast['max_priority']} vs {plain['max_priority']})")
+    res = {
+        "dispatches": dispatches, "gradient_steps_per_dispatch": g, "batch": batch,
+        "params": sum(p.numel() for p in agent.parameters()),
+        "losses_kernels": fast["metrics"], "losses_lax": plain["metrics"], "max_rel_diff": worst_loss,
+        "max_abs_param_diff": worst_param, "param_atol": SAC_PARAM_ATOL,
+        "max_rel_tree_diff": tree_err, "max_priority": fast["max_priority"],
+        "leaves_identical": True, "dispatch_ms_kernels": fast["ms"], "dispatch_ms_lax": plain["ms"],
+        "launches": fast["launches"], "max_memory_allocated": fast["max_memory_allocated"],
+        "max_memory_allocated_lax": plain["max_memory_allocated"],
+    }
+    if device != "cpu":
+        res["gather"] = time_transitions_gather(torch, cache, fast["leaves"][-1])
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            # device time of one more dispatch; the idle share is taken
+            # against the kernel run's dispatch time without the profiler
+            cache.kernel = "pallas"
+            gen = torch.Generator(device=device).manual_seed(0)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                train_dispatch(fast["state"], rb, cache, cfg, [True] * g, fill["written"], beta_fn, None, gen)
+                torch.cuda.synchronize()
+            res["profile"] = _device_time(torch, prof, 1, float(np.mean(fast["ms"])))
+    return res
+
+
+def prioritized_starts(cfg, runtime, agent, rb, actions_dim, *, draws: int = 3) -> dict:
+    """Path B: prioritized sequence starts on the XL ring.  A prioritized
+    cache over the training phase's host buffer (every stored cell at 1),
+    ``draws`` calls of ``sample_per`` (63 exclusions, decay 0.5 after each)
+    with the kernels, then one XL train step on a prioritized draw, the
+    sum-tree launch counters set to 0 just before and read just after;
+    then the same draws from the same tree through the plain tree
+    functions.  Starts must be identical (the priorities are dyadic, so every
+    sum is exact) and the batches bytes equal."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_state, train_steps
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayCache
+    from sheeprl_tpu_torch.ops import per
+    from sheeprl_tpu_torch.ops.gather import gather_windows
+
+    device = runtime.device
+    seq_len, batch = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    cache = DeviceReplayCache(
+        rb.buffer_size, rb.n_envs, device=device, prioritized=True, per_alpha=float(cfg.buffer.per_alpha),
+        per_eps=float(cfg.buffer.per_eps), per_decay=cfg.buffer.per_decay_on_sample, kernel="pallas",
+    )
+    cache.load_from(rb)
+    tree0 = cache.tree.tree.clone()
+    counters = (per.sum_tree_sample, per.sum_tree_write, gather_windows)
+
+    def sample(kernel: str) -> tuple:
+        cache.kernel = kernel
+        cache.tree.tree.copy_(tree0)
+        gen = torch.Generator(device=device).manual_seed(7)
+        starts, batches = [], []
+        inner = cache.tree.sample
+
+        def recording(*a, **kw):
+            leaf, w = inner(*a, **kw)
+            starts.append(leaf.clone())
+            return leaf, w
+
+        cache.tree.sample = recording
+        try:
+            for _ in range(draws):
+                batches.append(cache.sample_per(1, batch, seq_len, gen, beta=0.0)[0])
+        finally:
+            del cache.tree.sample
+        return starts, batches
+
+    if device.type != "cpu":
+        torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    fast_starts, fast_batches = sample("pallas")
+    state = make_train_state(runtime, agent, cfg, False, actions_dim)
+    metrics = train_steps(state, rb, cache, cfg, 1, torch.Generator(device=device).manual_seed(8))
+    if device.type != "cpu":
+        torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    losses = {k: float(v) for k, v in metrics[0].items()}
+    bad = [k for k, v in losses.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"XL train step on a prioritized draw: non-finite {bad}")
+    plain_starts, plain_batches = sample("lax")
+    flips = sum(int((a != b).sum()) for a, b in zip(fast_starts, plain_starts))
+    if flips:
+        raise AssertionError(f"prioritized starts: {flips} of {draws * batch} differ between the kernels and the plain tree")
+    for a, b in zip(fast_batches, plain_batches):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"prioritized draw '{k}': batches differ where the starts agree")
+    want = {"sum_tree_sample": draws + 1, "sum_tree_write": draws + 1, "gather_windows": draws + 1}
+    if device.type != "cpu" and launches != want:
+        raise AssertionError(f"prioritized starts: kernel launches {launches}, want {want}")
+    res = {
+        "draws": draws, "exclusions": (seq_len - 1) * rb.n_envs, "decay": cache.per_decay, "start_flips": flips,
+        "batches_bytes_equal": True, "train_step_losses": losses, "launches": launches,
+        "tree_total_after": cache.tree.total,
+    }
+    del cache
     return res
 
 
@@ -712,6 +1277,10 @@ def _kernel_group(name: str) -> str:
         return "gru_cell (hand-written)"
     if "gather_windows" in n:
         return "gather_windows (hand-written)"
+    if "gather_transitions" in n:
+        return "gather_transitions (hand-written)"
+    if any(k in n for k in ("sample_kernel", "normalize_kernel", "claim_kernel", "write_leaves", "rebuild_level")):
+        return "sum_tree (hand-written)"
     if "memcpy" in n or "memset" in n:
         return "copies"
     if "conv" in n or "implicit" in n or "winograd" in n or "fft" in n:
@@ -724,13 +1293,14 @@ def _kernel_group(name: str) -> str:
 def _device_time(torch, prof, steps: int, step_ms: float) -> dict:
     """Device time per step by kernel and by group from a profiler window
     of ``steps`` steps, and the device's idle share of ``step_ms``."""
-    kernels, groups = {}, {}
+    kernels, groups, launches = {}, {}, 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(ev, "self_device_time_total", None)
         t = ev.self_cuda_time_total if t is None else t
         kernels[ev.key] = kernels.get(ev.key, 0.0) + t / 1e3 / steps
+        launches += ev.count
     for name, ms in kernels.items():
         groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
     device_ms = sum(kernels.values())
@@ -739,6 +1309,7 @@ def _device_time(torch, prof, steps: int, step_ms: float) -> dict:
         "step_ms": step_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / step_ms),
+        "device_ops_per_step": launches / steps,
         "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms_per_step": [[k[:90], v] for k, v in top],
     }
@@ -788,6 +1359,16 @@ def profile_serving(steps: int) -> dict:
     return res
 
 
+def _kernel_entry(name: str, source: str, replaces: str, launches: dict, row: dict, shape: str, **extra) -> dict:
+    """One entry of the ``kernels`` line from a kernel's timing row."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        **{k: row[k] for k in keys}, "shape": shape, **extra,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -798,6 +1379,7 @@ def main() -> int:
     from sheeprl_tpu_torch.config import dotdict
     from sheeprl_tpu_torch.ops import gather as gather_ops
     from sheeprl_tpu_torch.ops import gru_cell as gru_ops
+    from sheeprl_tpu_torch.ops import per as per_ops
 
     gru_cell, gru_cell_plain = gru_ops.gru_cell, gru_ops.gru_cell_plain
 
@@ -808,7 +1390,7 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build: every kernel of both paths, side by side
-    phase("build", **build_kernels([gru_ops.LIBRARY, gather_ops.LIBRARY]))
+    phase("build", **build_kernels([gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY]))
 
     if "--profile" in sys.argv:
         i = sys.argv.index("--profile")
@@ -828,6 +1410,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gru_rows = check_gru_kernel(torch, gru_cell, gru_cell_plain)
     check_gru_backward(torch, gru_cell, gru_cell_plain)
+    tree_rows = check_sum_tree_kernels(torch)
+    check_transitions_gather(torch)
 
     # 4. serving: DV3-XL sessions through the port's server
     gru_cell.launches = 0  # set again inside, just before the served run
@@ -854,10 +1438,22 @@ def main() -> int:
     # 6. training: train_steps at DV3-XL with both kernels, then plain
     train = run_training(dotdict(XL_CRAFTER), CRAFTER_OBS, CRAFTER_ACTIONS, "cuda")
     gather_row = train.pop("gather")
+    per_train = train.pop("per")
     phase("training_losses", kernels=train.pop("losses_kernels"), plain=train.pop("losses_plain"))
     phase("training", **train)
+    phase("training_per", **per_train)
+    torch.cuda.empty_cache()
 
-    # 7. purity
+    # 7. SAC: train_dispatch on walker-walk with prioritized replay, kernels then lax
+    sac = run_sac(dotdict(SAC_WALKER), "cuda")
+    transitions_row = sac.pop("gather")
+    sac_profile = sac.pop("profile", None)
+    phase("sac_losses", kernels=sac.pop("losses_kernels"), lax=sac.pop("losses_lax"))
+    phase("sac_training", **sac)
+    if sac_profile is not None:
+        phase("sac_profile", **sac_profile)
+
+    # 8. purity
     bad = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu")
@@ -890,7 +1486,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/gather_windows.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gather.py:84",
-            "launches": train["launches"]["gather_windows"],
+            "launches": train["launches"]["gather_windows"] + per_train["launches"]["gather_windows"],
+            "launches_by_path": {"training": train["launches"]["gather_windows"],
+                                 "training_per": per_train["launches"]["gather_windows"]},
             "max_abs_err": gather_row["max_abs_err"],
             "ms": gather_row["ms"],
             "plain_ms": gather_row["plain_ms"],
@@ -902,6 +1500,20 @@ def main() -> int:
             "library_device_ms": gather_row["library_device_ms"],
             "shape": f"{gather_row['rows']} rows x {gather_row['row_bytes']} B",
         },
+        _kernel_entry("gather_transitions", "sheeprl_tpu_torch/csrc/gather_transitions.cu",
+                      "sheeprl_tpu/ops/pallas_gather.py:127", {"sac": sac["launches"]["gather_transitions"]},
+                      transitions_row, f"{transitions_row['rows']} rows x {transitions_row['row_bytes']} B"),
+        _kernel_entry("sum_tree_sample", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:171",
+                      {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"]},
+                      tree_rows["sample_e0"], f"{TREE_DRAWS} draws, {TREE_LEAVES} leaves, no exclusions",
+                      ms_e63=tree_rows["sample_e63"]["ms"], bound_ms_e63=tree_rows["sample_e63"]["bound_ms"],
+                      flips_f32_e63=tree_rows["sample_e63"]["checks"]["f32"]["flips"]),
+        _kernel_entry("sum_tree_write", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:252",
+                      {"sac": sac["launches"]["sum_tree_write"], "training_per": per_train["launches"]["sum_tree_write"]},
+                      tree_rows["sum_tree_write"], "256 lanes (one SAC flush), 2^20-leaf tree"),
+        _kernel_entry("sum_tree_update", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:275",
+                      {"sac": sac["launches"]["sum_tree_update"]},
+                      tree_rows["sum_tree_update"], f"{TREE_DRAWS} lanes, 2^20-leaf tree"),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

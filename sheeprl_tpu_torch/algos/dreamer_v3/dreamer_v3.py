@@ -46,6 +46,9 @@ from sheeprl_tpu_torch.utils.distribution import (
     gumbel_noise,
     normal_noise,
 )
+from sheeprl_tpu_torch.utils.utils import ema_
+from sheeprl_tpu_torch.utils.utils import grads_or_zeros as _grads
+from sheeprl_tpu_torch.utils.utils import trainable_params as _trainable
 
 __all__ = ["TrainState", "draw_noise", "ema_", "make_train_fn", "make_train_state", "train_steps"]
 
@@ -64,16 +67,6 @@ def draw_noise(
         "img": gumbel_noise((horizon, rows, s, d), like=like, generator=generator),
         "act": draw((horizon + 1, rows, int(np.sum(actions_dim))), like=like, generator=generator),
     }
-
-
-def _grads(loss: torch.Tensor, params: Dict[str, torch.nn.Parameter]) -> Dict[str, torch.Tensor]:
-    """d loss / d params; a parameter the loss does not reach gets zeros, as in JAX."""
-    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), got)}
-
-
-def _trainable(module: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
-    return {k: p for k, p in module.named_parameters() if p.requires_grad}
 
 
 def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_continuous: bool, actions_dim):
@@ -249,13 +242,6 @@ def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_co
         return opt_states, new_moments, metrics
 
     return train
-
-
-@torch.no_grad()
-def ema_(target: torch.nn.Module, source: torch.nn.Module, tau: float) -> None:
-    """``optax.incremental_update``: target = tau * source + (1 - tau) * target."""
-    for t, s in zip(target.parameters(), source.parameters()):
-        t.mul_(1.0 - tau).add_(s, alpha=tau)
 
 
 @dataclass

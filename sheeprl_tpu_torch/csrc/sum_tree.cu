@@ -1,0 +1,207 @@
+// The prioritized-replay sum-tree for Hopper (sm_90a), with a plain C interface
+// bound through ctypes (sheeprl_tpu_torch/ops/per.py builds and loads it).
+//
+// Replaces three Pallas kernels of sheeprl_tpu/ops/pallas_per.py:
+//   _sample_kernel (the pallas_call of sum_tree_sample) -> sheeprl_sum_tree_sample
+//   _write_kernel  (the pallas_call of sum_tree_write)  -> sheeprl_sum_tree_write
+//   _update_kernel (the pallas_call of sum_tree_update) -> the same entry point
+//                  with the running-max fold switched on
+//
+// The tree is a 1-based heap of 2P f32 (P = 2^depth leaves): the root, the
+// total mass, at 1, leaf l at P + l, slot 0 unused.
+//
+// Sample: n proportional draws.  For draw i, with E excluded leaves excl[e]
+// (active where eact[e]) of mass emass[e] = tree[P + excl[e]]:
+//   total = tree[1] - sum_e emass[e];  u = r01[i] * total
+//   d levels: left = tree[2 node] - sum_e [ancestor of excl[e] == 2 node] emass[e]
+//             go right when u >= left (then u -= left)
+//   w = (max(count, 1) * max(mass, tiny) / max(total, tiny))^-beta,  w /= max_i w
+// The exclusions are corrections inside the descent: the stored tree is not
+// copied or written.  Without exclusions the arithmetic is op for op the lax
+// descent's, so the leaves are identical to it.  Every product and difference
+// is rounded on its own (__fmul_rn/__fsub_rn): a fused multiply-add of
+// r01 * total - left would move a draw that lands within an ulp of a subtree
+// boundary.
+//
+// Write/update: set leaf[i] to values[i] where active[i], then rebuild every
+// touched ancestor bottom-up as tree[2p] + tree[2p + 1].  A leaf given by
+// several active lanes takes the value of the LAST of them (the lane with the
+// highest index): what XLA's scatter keeps on the CPU, made deterministic here
+// by an atomic max of the lane index into a scratch `owner` (P int32, -1 on
+// entry); the writer clears its claim back to -1, so the scratch leaves a call
+// as it came and a caller keeps one per tree.  Inactive lanes write nothing.  Update also folds
+// new_max = max(max_p, max_i where(active, values, 0)) into *new_max, which
+// holds max_p on entry.
+//
+// What bounds them on an H100.  All three are latency-bound walks over an
+// 8 MB tree (2^20 leaves) that sits in the 50 MB L2: a draw reads d + 1
+// nodes one after another, a write d + 1 nodes per lane.  At the SAC
+// dispatch (n = 16,384 draws, d = 20) the descent touches at most
+// n (d + 1) 32-byte sectors, 11 MB, about 3.3 us at 3.35 TB/s; in practice
+// the levels near the root are shared by every draw and stay in L1/L2.
+//
+// What the design does about it.  One thread per draw, the E exclusions
+// (at most kMaxExcl, 63 on the Dreamer path) staged in shared memory with
+// their masses, the total summed once per block in a fixed order; the batch
+// max of the weights by an atomic max on the bits of the f32 weights (exact),
+// then a second launch divides.  The write is one launch to pick each leaf's
+// writer (and fold the max), one to write the leaves, then one launch per
+// level, depth + 2 launches in all: a launch boundary is the barrier between
+// levels, so a block never waits on another.  Lanes that meet at a common
+// ancestor write the same sum there, a benign race.  Simple kernels: no
+// persistent blocks and no level fusion yet.
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxExcl = 1024;
+constexpr int kMaxDepth = 30;
+
+// max over f32 by integer atomics, exact for every pair of ordered floats:
+// non-negative floats order like their int bits, negative ones inversely to
+// their unsigned bits
+__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+  if (!signbit(v)) {
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) sample_kernel(
+    const float* __restrict__ tree, int depth, const float* __restrict__ r01, int n, float beta,
+    float count, const int* __restrict__ excl, const uint8_t* __restrict__ eact, int n_excl,
+    int* __restrict__ leaf_out, float* __restrict__ w_out, float* wmax) {
+  __shared__ int s_enode[kMaxExcl];
+  __shared__ float s_emass[kMaxExcl];
+  __shared__ float s_total;
+  const int p = 1 << depth;
+  for (int e = threadIdx.x; e < n_excl; e += blockDim.x) {
+    const int en = excl[e] + p;
+    s_enode[e] = en;
+    s_emass[e] = eact[e] ? tree[en] : 0.0f;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int e = 0; e < n_excl; ++e) s = __fadd_rn(s, s_emass[e]);
+    s_total = __fsub_rn(tree[1], s);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float total = s_total;
+  float u = __fmul_rn(r01[i], total);
+  int node = 1;
+  for (int lvl = 0; lvl < depth; ++lvl) {
+    const int child = 2 * node;
+    float left = tree[child];
+    if (n_excl > 0) {
+      const int shift = depth - 1 - lvl;
+      float corr = 0.0f;
+      for (int e = 0; e < n_excl; ++e) {
+        if ((s_enode[e] >> shift) == child) corr = __fadd_rn(corr, s_emass[e]);
+      }
+      left = __fsub_rn(left, corr);
+    }
+    const bool right = u >= left;
+    if (right) u = __fsub_rn(u, left);
+    node = child + (right ? 1 : 0);
+  }
+  const float mass = tree[node];
+  const float probs = __fdiv_rn(fmaxf(mass, FLT_MIN), fmaxf(total, FLT_MIN));
+  const float w = powf(__fmul_rn(fmaxf(count, 1.0f), probs), -beta);
+  leaf_out[i] = node - p;
+  w_out[i] = w;
+  atomic_max_f32(wmax, w);
+}
+
+__global__ void __launch_bounds__(kThreads) normalize_kernel(float* __restrict__ w, const float* __restrict__ wmax, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) w[i] = __fdiv_rn(w[i], *wmax);
+}
+
+__global__ void __launch_bounds__(kThreads) claim_kernel(
+    const int* __restrict__ leaf, const float* __restrict__ values, const uint8_t* __restrict__ active, int n,
+    int* __restrict__ owner, float* new_max) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const bool act = active[i] != 0;
+  if (new_max != nullptr) atomic_max_f32(new_max, act ? values[i] : 0.0f);
+  if (act) atomicMax(&owner[leaf[i]], i);
+}
+
+__global__ void __launch_bounds__(kThreads) write_leaves_kernel(
+    float* __restrict__ tree, int p, const int* __restrict__ leaf, const float* __restrict__ values,
+    const uint8_t* __restrict__ active, int n, int* owner) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || !active[i]) return;
+  const int l = leaf[i];
+  // other lanes of leaf l read i or -1 here, never their own index
+  if (owner[l] == i) {
+    tree[p + l] = values[i];
+    owner[l] = -1;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) rebuild_level_kernel(
+    float* tree, int p, const int* __restrict__ leaf, const uint8_t* __restrict__ active, int n, int shift) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || !active[i]) return;
+  const int node = (leaf[i] + p) >> shift;
+  tree[node] = __fadd_rn(tree[2 * node], tree[2 * node + 1]);
+}
+
+inline unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+int sheeprl_sum_tree_max_excl() { return kMaxExcl; }
+
+// leaf/w are (n,) outputs; *wmax is a device f32 holding 0 on entry.  Returns
+// the CUDA error of the launches (0 on success).
+int sheeprl_sum_tree_sample(const float* tree, int depth, const float* r01, int n, float beta, float count,
+                            const int* excl, const uint8_t* eact, int n_excl, int* leaf, float* w, float* wmax,
+                            void* stream) {
+  if (depth < 1 || depth > kMaxDepth || n < 0 || n_excl < 0 || n_excl > kMaxExcl) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sample_kernel<<<blocks_for(n), kThreads, 0, s>>>(tree, depth, r01, n, beta, count, excl, eact, n_excl, leaf, w, wmax);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  normalize_kernel<<<blocks_for(n), kThreads, 0, s>>>(w, wmax, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// In place on tree.  owner is (P,) int32 holding -1 on entry and on exit; new_max is null
+// for a plain write, else a device f32 holding max_p on entry.
+int sheeprl_sum_tree_write(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
+                           int n, int* owner, float* new_max, void* stream) {
+  if (depth < 1 || depth > kMaxDepth || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int p = 1 << depth;
+  const unsigned blocks = blocks_for(n);
+  claim_kernel<<<blocks, kThreads, 0, s>>>(leaf, values, active, n, owner, new_max);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  write_leaves_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, values, active, n, owner);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int shift = 1; shift <= depth; ++shift) {
+    rebuild_level_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, active, n, shift);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,43 +1,59 @@
-"""Device-resident replay window with on-device sequence sampling.
+"""Device-resident replay window with on-device sampling.
 
 Counterpart of the single-device half of ``sheeprl_tpu/data/device_buffer.py``:
-:class:`DeviceReplayCache` mirrors an ``EnvIndependentReplayBuffer`` over
-``SequentialReplayBuffer``s in rings ``(capacity, n_envs, *feat)`` on the
-card.  Each policy step appends only its new rows; a draw is one gather on
-the card instead of a host sample and a copy of every batch.  Semantics
-are the host buffer's: one ring per env with its own write head, the env
-drawn uniformly per batch row, the window start uniform over the
-``filled - L + 1`` starts that never cross the write head.
+:class:`DeviceReplayCache` mirrors a host replay buffer in rings
+``(capacity, n_envs, *feat)`` on the card.  Each policy step appends only
+its new rows; a draw is one gather on the card instead of a host sample and
+a copy of every batch.  Two families share the rings:
 
-``buffer.per_kernel`` keeps its JAX meaning: ``pallas`` gathers every key's
-windows with the hand-written kernel (``ops/gather.py``, one launch per
-draw), ``lax`` with per-key advanced indexing.  Both give the same bytes.
+- sequences (Dreamer), mirroring an ``EnvIndependentReplayBuffer`` over
+  ``SequentialReplayBuffer``s: one ring per env with its own write head, the
+  env drawn uniformly per batch row, the window start uniform over the
+  ``filled - L + 1`` starts that never cross the write head
+  (:meth:`~DeviceReplayCache.sample`);
+- flat transitions (SAC), mirroring a ``ReplayBuffer`` whose envs all add in
+  lockstep: rows uniform over the stored history, the env uniform per row,
+  ``next_<k>`` from the successor row, the write-head row left out when next
+  observations are gathered (:meth:`~DeviceReplayCache.sample_transitions`).
 
-Not ported yet: prioritized sampling (``buffer.prioritized``, the
-sum-tree kernels of the next slice) and the env-sharded cache of
-multi-device meshes (the multi-GPU slice); both raise.
+``prioritized=True`` (``buffer.prioritized``) keeps a sum-tree over the
+cells (``replay/priority_tree.py``, leaf = row * n_envs + env) beside the
+rings: new cells enter at the running max priority, transition draws are
+proportional with IS weights (:meth:`~DeviceReplayCache.sample_transitions_per`)
+and take TD-error feedback (:meth:`~DeviceReplayCache.update_priorities`),
+sequence starts are drawn proportional to their cell's priority and
+optionally decayed after each draw (:meth:`~DeviceReplayCache.sample_per`).
+
+``buffer.per_kernel`` keeps its JAX meaning: ``pallas`` runs the sum-tree
+and every gather through the hand-written kernels (``ops/per.py``,
+``ops/gather.py``: one launch per draw), ``lax`` through the plain tree
+functions and per-key advanced indexing.  Both give the same bytes.
+
+The env-sharded cache of multi-device meshes waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.ops.gather import gather_windows, gather_windows_plain
+from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain, gather_windows, gather_windows_plain
+from sheeprl_tpu_torch.replay.priority_tree import PriorityTree, resolve_per_kernel
+from sheeprl_tpu_torch.utils.utils import resolve_device
 
 __all__ = [
     "DeviceReplayCache",
     "device_cache_setting",
     "maybe_create_for",
+    "maybe_create_for_transitions",
+    "sample_transition_rows",
     "sample_window_starts",
     "sequence_batches",
 ]
-
-_KERNELS = ("lax", "pallas")
 
 
 def _store_dtype(dt) -> np.dtype:
@@ -78,9 +94,19 @@ def sample_window_starts(
     return ((base[envs.long()] + offs) % cap).to(torch.int32)
 
 
-def maybe_create_for(cfg, runtime, rb) -> Optional["DeviceReplayCache"]:
+def sample_transition_rows(u: torch.Tensor, *, base: int, count: int, cap: int) -> torch.Tensor:
+    """(flat,) int32 ring rows from ``u`` in [0, 1): uniform over the
+    ``count`` sampleable rows from the oldest (``base``), in
+    ``_sample_transitions``' arithmetic (``device_buffer.py:189-191``)."""
+    offs = torch.clamp_max((u.float() * count).to(torch.int32), count - 1)
+    return ((base + offs) % cap).to(torch.int32)
+
+
+def maybe_create_for(cfg, runtime, rb, state=None) -> Optional["DeviceReplayCache"]:
     """A cache mirroring ``rb`` when it is an ``EnvIndependentReplayBuffer``
-    and the config allows one, filled from ``rb`` (empty when ``rb`` is)."""
+    and the config allows one, filled from ``rb`` (empty when ``rb`` is).
+    ``state`` is the restored checkpoint's, when ``rb`` was restored: a
+    prioritized cache then reloads its priorities from it."""
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
 
     if not isinstance(rb, EnvIndependentReplayBuffer):
@@ -88,15 +114,35 @@ def maybe_create_for(cfg, runtime, rb) -> Optional["DeviceReplayCache"]:
     cache = DeviceReplayCache.maybe_create(cfg, runtime, capacity=rb.buffer_size, n_envs=rb.n_envs)
     if cache is not None:
         cache.load_from(rb)
+        if state is not None and cache.prioritized:
+            cache.load_priority_state(state.get("replay_priority"))
+    return cache
+
+
+def maybe_create_for_transitions(cfg, runtime, rb, state=None) -> Optional["DeviceReplayCache"]:
+    """SAC-family factory: a cache mirroring a plain ``ReplayBuffer`` when the
+    config allows one, filled from ``rb``; ``state`` as for
+    :func:`maybe_create_for`."""
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+
+    if type(rb) is not ReplayBuffer:
+        return None
+    cache = DeviceReplayCache.maybe_create(cfg, runtime, capacity=rb.buffer_size, n_envs=rb.n_envs)
+    if cache is not None:
+        cache.load_from_replay(rb)
+        if state is not None and cache.prioritized:
+            cache.load_priority_state(state.get("replay_priority"))
     return cache
 
 
 class DeviceReplayCache:
-    """Device mirror of a sequential replay buffer (see the module docstring).
+    """Device mirror of a replay buffer (see the module docstring).
 
-    The rings are allocated on the first :meth:`add` or :meth:`load_from`,
-    with the dtypes and shapes of that data (f64 is stored as f32).  Writes
-    go into the rings in place."""
+    The rings are allocated on the first :meth:`add`, :meth:`load_from` or
+    :meth:`load_from_replay`, with the dtypes and shapes of that data (f64 is
+    stored as f32), on ``device``: the card unless the caller asks for
+    another (``utils.resolve_device``).  Writes go into the rings and the
+    tree in place."""
 
     def __init__(
         self,
@@ -105,18 +151,22 @@ class DeviceReplayCache:
         device=None,
         budget_bytes: Optional[int] = None,
         prioritized: bool = False,
+        per_alpha: float = 0.6,
+        per_eps: float = 1e-6,
+        per_decay: Optional[float] = None,
         kernel: str = "lax",
     ):
         if capacity <= 0 or n_envs <= 0:
             raise ValueError(f"capacity ({capacity}) and n_envs ({n_envs}) must be positive")
-        if prioritized:
-            raise NotImplementedError("prioritized device replay (buffer.prioritized) is not ported yet: slice 3")
-        if kernel not in _KERNELS:
-            raise ValueError(f"buffer.per_kernel must be one of {_KERNELS}, got '{kernel}'")
         self.capacity = int(capacity)
         self.n_envs = int(n_envs)
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
+        self._tree: Optional[PriorityTree] = None
         self.kernel = kernel
+        self.prioritized = bool(prioritized)
+        self.per_alpha = float(per_alpha)
+        self.per_eps = float(per_eps)
+        self.per_decay = None if per_decay is None else float(per_decay)
         self._budget = budget_bytes
         self._bufs: Optional[Dict[str, torch.Tensor]] = None
         self._pos = np.zeros(n_envs, dtype=np.int64)
@@ -126,11 +176,18 @@ class DeviceReplayCache:
     @classmethod
     def maybe_create(cls, cfg, runtime, capacity: int, n_envs: int) -> Optional["DeviceReplayCache"]:
         """Create when the config allows: ``on`` always, ``auto`` on a card
-        when the rings fit ``buffer.device_cache_budget_gb``."""
+        when the rings fit ``buffer.device_cache_budget_gb``, and wherever
+        ``buffer.prioritized`` needs it (the sum-tree lives with the cache)."""
         mode = device_cache_setting(cfg)
-        if bool(cfg.buffer.get("prioritized", False)):
-            raise NotImplementedError("prioritized device replay (buffer.prioritized) is not ported yet: slice 3")
-        if mode == "off" or (mode == "auto" and runtime.device.type == "cpu"):
+        prioritized = bool(cfg.buffer.get("prioritized", False))
+        if mode == "off":
+            if prioritized:
+                raise ValueError(
+                    "buffer.prioritized=True requires the device sampler, but buffer.device_cache=False disables it; "
+                    "drop one of the two (device_cache=auto enables the cache wherever PER needs it)"
+                )
+            return None
+        if mode == "auto" and runtime.device.type == "cpu" and not prioritized:
             return None
         budget_gb = float(cfg.buffer.get("device_cache_budget_gb", 6.0))
         return cls(
@@ -138,12 +195,32 @@ class DeviceReplayCache:
             n_envs,
             device=runtime.device,
             budget_bytes=int(budget_gb * 1e9) if mode == "auto" else None,
+            prioritized=prioritized,
+            per_alpha=float(cfg.buffer.get("per_alpha", 0.6)),
+            per_eps=float(cfg.buffer.get("per_eps", 1e-6)),
+            per_decay=cfg.buffer.get("per_decay_on_sample", None),
             kernel=str(cfg.buffer.get("per_kernel", "lax")),
         )
 
     @property
     def buffers(self) -> Optional[Dict[str, torch.Tensor]]:
         return self._bufs
+
+    @property
+    def tree(self) -> Optional[PriorityTree]:
+        return self._tree
+
+    @property
+    def kernel(self) -> str:
+        """``buffer.per_kernel``: it picks the gathers here and the sum-tree
+        functions in :attr:`tree`; setting it sets both."""
+        return self._kernel
+
+    @kernel.setter
+    def kernel(self, value) -> None:
+        self._kernel = resolve_per_kernel(value)
+        if self._tree is not None:
+            self._tree.kernel = self._kernel
 
     def estimate_bytes(self, row: Dict[str, np.ndarray]) -> int:
         return sum(
@@ -174,7 +251,14 @@ class DeviceReplayCache:
             )
             for k, v in row.items()
         }
+        self._ensure_tree()
         return True
+
+    def _ensure_tree(self) -> None:
+        if self.prioritized and self._tree is None:
+            self._tree = PriorityTree(
+                self.capacity * self.n_envs, alpha=self.per_alpha, eps=self.per_eps, device=self.device, kernel=self.kernel
+            )
 
     def _to_device(self, v: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(v, dtype=_store_dtype(v.dtype))).to(self.device)
@@ -184,7 +268,10 @@ class DeviceReplayCache:
         """Mirror of ``EnvIndependentReplayBuffer.add``: ``data`` is
         (T, n_envs_in, *feat); ``indices`` routes its columns to env rings
         (default: all envs in order).  When T exceeds the capacity only the
-        last ``capacity`` rows survive, and the write heads still move by T."""
+        last ``capacity`` rows survive, and the write heads still move by T.
+        A prioritized cache seeds the written cells at the running max
+        priority (one tree write for the whole window), which also retires
+        the priority of every overwritten transition."""
         if not self.active:
             return
         first = next(iter(data.values()))
@@ -217,12 +304,16 @@ class DeviceReplayCache:
         for k, v in data.items():
             buf = self._bufs[k]
             buf[rows_t, envs_t] = self._to_device(v).to(buf.dtype)
+        if self._tree is not None:
+            leaves = (rows_t * self.n_envs + envs_t).reshape(-1)
+            self._tree.seed_max(leaves, torch.ones(leaves.shape, dtype=torch.bool, device=self.device))
         self._pos[idx] = (self._pos[idx] + advance) % self.capacity
         self._filled[idx] = np.minimum(self._filled[idx] + advance, self.capacity)
 
     def load_from(self, rb) -> None:
         """Bulk fill from an ``EnvIndependentReplayBuffer``: one host copy
-        and one transfer per key.  Adopts the host buffer's write heads."""
+        and one transfer per key.  Adopts the host buffer's write heads; a
+        prioritized cache reseeds every stored cell at priority 1."""
         if not self.active:
             return
         subs = rb.buffer
@@ -246,19 +337,91 @@ class DeviceReplayCache:
         self._bufs = bufs
         self._pos = np.asarray([b._pos for b in subs], dtype=np.int64)
         self._filled = np.asarray([b.buffer_size if b.full else b._pos for b in subs], dtype=np.int64)
+        self._reseed_tree_filled()
+
+    def load_from_replay(self, rb) -> None:
+        """Bulk fill from a plain (flat-transition) ``ReplayBuffer``, whose
+        envs share one write head; a prioritized cache reseeds every stored
+        cell at priority 1."""
+        if not self.active:
+            return
+        if rb.buffer_size != self.capacity or rb.n_envs != self.n_envs:
+            raise ValueError(
+                f"host buffer ({rb.n_envs} envs x {rb.buffer_size}) does not match the cache ({self.n_envs} x {self.capacity})"
+            )
+        if not rb.buffer:
+            return  # nothing stored yet
+        if not self._admit({k: np.asarray(v[:1]) for k, v in rb.buffer.items()}):
+            return
+        self._bufs = {k: self._to_device(np.asarray(v)) for k, v in rb.buffer.items()}
+        pos = int(rb._pos)
+        self._pos = np.full(self.n_envs, pos, dtype=np.int64)
+        self._filled = np.full(self.n_envs, self.capacity if rb.full else pos, dtype=np.int64)
+        self._reseed_tree_filled()
+
+    # ------------------------------------------------- prioritized replay
+    def _reseed_tree_filled(self) -> None:
+        """Every stored cell at priority 1, every other at 0 (one write over
+        all leaves): the state after a load, until ``load_priority_state``
+        brings a saved tree."""
+        if not self.prioritized or self._bufs is None:
+            return
+        self._ensure_tree()
+        base = np.where(self._filled >= self.capacity, self._pos, 0)  # (n_envs,)
+        offs = (np.arange(self.capacity)[:, None] - base[None, :]) % self.capacity
+        stored = offs < self._filled[None, :]  # (cap, n_envs)
+        n = self.capacity * self.n_envs
+        self._tree.set_priorities(
+            torch.arange(n, device=self.device), torch.from_numpy(stored.astype(np.float32).reshape(-1)).to(self.device)
+        )
+
+    def priority_state(self) -> Optional[Dict[str, Any]]:
+        """The tree's checkpoint payload (None when not prioritized)."""
+        return self._tree.state_dict() if self._tree is not None else None
+
+    def load_priority_state(self, state: Optional[Dict[str, Any]]) -> None:
+        """Restore a saved tree; ``None`` reseeds every stored cell at 1."""
+        if not self.prioritized or not self.active or self._bufs is None:
+            return
+        self._ensure_tree()
+        if state is None:
+            self._reseed_tree_filled()
+        else:
+            self._tree.load_state_dict(state)
+
+    def update_priorities(self, idx, td_abs) -> None:
+        """TD-error feedback: ``idx`` are the leaves a prioritized draw
+        returned (any shape), ``td_abs`` the matching |delta|.  Stays on the
+        device; a no-op without a tree."""
+        if self._tree is None:
+            return
+        idx = torch.as_tensor(idx, device=self.device).reshape(-1)
+        self._tree.update(idx, torch.as_tensor(td_abs, device=self.device).reshape(-1))
 
     # ------------------------------------------------------------- read
     def can_sample(self, seq_len: int) -> bool:
         return self.active and self._bufs is not None and bool(np.all(self._filled >= seq_len))
 
+    def can_sample_transitions(self, sample_next_obs: bool = False) -> bool:
+        need = 2 if sample_next_obs else 1
+        return self.active and self._bufs is not None and bool(np.all(self._filled >= need))
+
     def draw(
         self, flat: int, generator: Optional[torch.Generator] = None
     ) -> tuple:
-        """(envs int32, u f32) for ``flat`` window starts, from ``generator``
-        (on the cache's device)."""
+        """(envs int32, u f32) for ``flat`` window starts or transition rows,
+        from ``generator`` (on the cache's device)."""
         envs = torch.randint(0, self.n_envs, (flat,), generator=generator, device=self.device, dtype=torch.int32)
         u = torch.rand((flat,), generator=generator, device=self.device)
         return envs, u
+
+    def _check_draw(self, batch_size: int, n_samples: int) -> None:
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+
+    def _check_tree(self) -> None:
+        if self._tree is None:
+            raise RuntimeError("prioritized sampling requested on a cache built without prioritized=True")
 
     def sample(
         self,
@@ -274,8 +437,7 @@ class DeviceReplayCache:
         card, one per gradient step, from one gather.  ``envs``/``u`` are
         the draws (flat = n_samples * batch); by default they come from
         ``generator``."""
-        if batch_size <= 0 or n_samples <= 0:
-            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        self._check_draw(batch_size, n_samples)
         if not self.can_sample(seq_len):
             raise ValueError(
                 f"Cannot sample a sequence of length {seq_len}. Data added so far: {int(self._filled.min())}"
@@ -292,18 +454,138 @@ class DeviceReplayCache:
             seq_len=seq_len,
             cap=self.capacity,
         ).contiguous()
+        return self._windows(starts, envs, n_samples, batch_size, seq_len)
+
+    def _windows(self, starts, envs, n_samples: int, batch_size: int, seq_len: int) -> List[Dict[str, torch.Tensor]]:
         gather = gather_windows if self.kernel == "pallas" else gather_windows_plain
         out = gather(self._bufs, starts, envs, seq_len=seq_len, batch_size=batch_size)
         return [{k: v[i] for k, v in out.items()} for i in range(n_samples)]
+
+    def sample_per(
+        self,
+        n_samples: int,
+        batch_size: int,
+        seq_len: int,
+        generator: Optional[torch.Generator] = None,
+        beta: float = 0.0,
+        *,
+        r01: Optional[torch.Tensor] = None,
+    ) -> List[Dict[str, torch.Tensor]]:
+        """Prioritized sequence-start draw (``_sample_prioritized``,
+        ``device_buffer.py:313-354``): the layout of :meth:`sample`, with
+        each window's start cell drawn proportional to its priority.  The
+        L - 1 rows before each env's write head cannot start a full window
+        and are excluded from the draw.  With ``per_decay`` the drawn starts'
+        priorities are multiplied by it afterwards.  ``r01`` are the
+        n_samples * batch uniforms (by default from ``generator``)."""
+        self._check_draw(batch_size, n_samples)
+        if not self.can_sample(seq_len):
+            raise ValueError(
+                f"Cannot sample a sequence of length {seq_len}. Data added so far: {int(self._filled.min())}"
+            )
+        self._check_tree()
+        flat = n_samples * batch_size
+        n_live = int(np.maximum(self._filled - seq_len + 1, 0).sum())
+        excl = None
+        if seq_len > 1:
+            offs = np.arange(1, seq_len)
+            inv_rows = (self._pos[None, :] - offs[:, None]) % self.capacity  # (L-1, n_envs)
+            excl = torch.from_numpy((inv_rows * self.n_envs + np.arange(self.n_envs)[None, :]).reshape(-1)).to(self.device)
+        leaves, _ = self._tree.sample(flat, beta=beta, count=n_live, exclude_idx=excl, generator=generator, r01=r01)
+        starts = (leaves // self.n_envs).to(torch.int32).contiguous()
+        envs = (leaves % self.n_envs).to(torch.int32).contiguous()
+        out = self._windows(starts, envs, n_samples, batch_size, seq_len)
+        if self.per_decay is not None:
+            self._tree.scale(leaves, self.per_decay)
+        return out
+
+    def _transition_draw_ready(self, n_samples: int, batch_size: int, sample_next_obs: bool) -> None:
+        self._check_draw(batch_size, n_samples)
+        if not self.can_sample_transitions(sample_next_obs):
+            raise ValueError("Not enough data in the device cache, add first")
+
+    def _transitions(self, rows, envs, n_samples: int, batch_size: int, next_keys: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """(flat,) rows/envs -> {k: (n_samples, batch, *feat)} (``_gather_transitions``)."""
+        gather = gather_transitions if self.kernel == "pallas" else gather_transitions_plain
+        flat = gather(self._bufs, rows, envs, next_keys=next_keys)
+        return {k: v.reshape(n_samples, batch_size, *v.shape[1:]) for k, v in flat.items()}
+
+    def sample_transitions(
+        self,
+        n_samples: int,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        sample_next_obs: bool = False,
+        obs_keys: Sequence[str] = (),
+        *,
+        envs: Optional[torch.Tensor] = None,
+        u: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Uniform flat-transition draw mirroring ``ReplayBuffer.sample``: one
+        dict of (n_samples, batch, *feat) (and ``next_<k>`` for ``obs_keys``
+        with ``sample_next_obs``).  ``envs``/``u`` are the draws (by default
+        from ``generator``)."""
+        self._transition_draw_ready(n_samples, batch_size, sample_next_obs)
+        flat = n_samples * batch_size
+        if envs is None or u is None:
+            envs, u = self.draw(flat, generator)
+        # the envs add in lockstep: env 0's write head and fill are everyone's
+        pos, filled = int(self._pos[0]), int(self._filled[0])
+        rows = sample_transition_rows(
+            u.to(self.device),
+            base=pos if filled >= self.capacity else 0,
+            count=filled - (1 if sample_next_obs else 0),
+            cap=self.capacity,
+        ).contiguous()
+        next_keys = tuple(obs_keys) if sample_next_obs else ()
+        return self._transitions(rows, envs.to(self.device, torch.int32).contiguous(), n_samples, batch_size, next_keys)
+
+    def sample_transitions_per(
+        self,
+        n_samples: int,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        beta: float = 0.4,
+        sample_next_obs: bool = False,
+        obs_keys: Sequence[str] = (),
+        *,
+        r01: Optional[torch.Tensor] = None,
+    ):
+        """Prioritized flat-transition draw (``_sample_transitions_prioritized``,
+        ``device_buffer.py:202-246``): :meth:`sample_transitions`' dict plus
+        ``is_weights`` (n_samples, batch, 1), and the drawn leaves
+        (n_samples, batch) for :meth:`update_priorities`.  With
+        ``sample_next_obs`` each env's newest row is excluded (its successor
+        is stale).  ``r01`` are the uniforms (by default from ``generator``)."""
+        self._transition_draw_ready(n_samples, batch_size, sample_next_obs)
+        self._check_tree()
+        flat = n_samples * batch_size
+        next_keys = tuple(obs_keys) if sample_next_obs else ()
+        n_live = int(self._filled.sum()) - (self.n_envs if next_keys else 0)
+        excl = None
+        if next_keys:
+            head_rows = (self._pos - 1) % self.capacity
+            excl = torch.from_numpy(head_rows * self.n_envs + np.arange(self.n_envs)).to(self.device)
+        leaves, w = self._tree.sample(flat, beta=beta, count=n_live, exclude_idx=excl, generator=generator, r01=r01)
+        rows = (leaves // self.n_envs).to(torch.int32).contiguous()
+        envs = (leaves % self.n_envs).to(torch.int32).contiguous()
+        out = self._transitions(rows, envs, n_samples, batch_size, next_keys)
+        out["is_weights"] = w.reshape(n_samples, batch_size, 1)
+        return out, leaves.reshape(n_samples, batch_size)
 
 
 @contextlib.contextmanager
 def sequence_batches(rb, device_cache, device, n_samples: int, batch_size: int, seq_len: int, generator=None):
     """The train loop's feed: yields an iterable of per-gradient-step batch
-    dicts: one on-card draw when the cache can sample, else the host
-    ``rb.sample`` through :func:`~sheeprl_tpu_torch.data.feed.batched_feed`."""
+    dicts: one on-card draw when the cache can sample (prioritized starts
+    when the cache keeps a tree: biased by design, with no IS weights, so
+    beta is 0), else the host ``rb.sample`` through
+    :func:`~sheeprl_tpu_torch.data.feed.batched_feed`."""
     if device_cache is not None and device_cache.can_sample(seq_len):
-        yield device_cache.sample(n_samples, batch_size, seq_len, generator)
+        if device_cache.prioritized and device_cache.tree is not None:
+            yield device_cache.sample_per(n_samples, batch_size, seq_len, generator, beta=0.0)
+        else:
+            yield device_cache.sample(n_samples, batch_size, seq_len, generator)
         return
     from sheeprl_tpu_torch.data.feed import batched_feed
 

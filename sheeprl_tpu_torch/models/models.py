@@ -1,7 +1,7 @@
-"""Building blocks of the DreamerV3 player as torch modules.
+"""Building blocks as torch modules.
 
 Counterpart of ``sheeprl_tpu/models/models.py`` (``resolve_activation``,
-``ln_act_apply``, ``gru_cell_apply``, ``LayerNormGRUCell``).  The
+``MLP``, ``ln_act_apply``, ``gru_cell_apply``, ``LayerNormGRUCell``).  The
 LayerNorms keep flax's formulas, not ``torch.nn.LayerNorm``'s: statistics
 in f32, the fast variance ``max(E[x^2] - E[x]^2, 0)``, then
 ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
@@ -22,7 +22,9 @@ from sheeprl_tpu_torch.ops.gru_cell import gru_cell
 __all__ = [
     "LayerNorm",
     "LayerNormGRUCell",
+    "MLP",
     "flax_init_",
+    "lecun_normal_",
     "gru_cell_apply",
     "layer_norm",
     "ln_act_apply",
@@ -91,6 +93,23 @@ def flax_init_(weight: torch.Tensor, init: str) -> None:
         raise ValueError(f"unknown initialiser '{init}'")
     std = math.sqrt(1.0 / fan_avg) / _TRUNC_STD
     nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's default Dense kernel init, ``lecun_normal``: a normal of
+    variance 1 / fan_in truncated at 2 std (the std rescaled for the cut)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
+
+
+def _per_layer(spec, n: int) -> list:
+    """Broadcast a scalar spec to ``n`` layers."""
+    if isinstance(spec, (list, tuple)):
+        if len(spec) != n:
+            raise ValueError(f"Per-layer spec length {len(spec)} != num layers {n}")
+        return list(spec)
+    return [spec] * n
 
 
 def layer_norm(
@@ -180,3 +199,55 @@ class LayerNormGRUCell(nn.Module):
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return gru_cell_apply(self, h, x)
+
+
+class MLP(nn.Module):
+    """``sheeprl_tpu/models/models.py:MLP``: per hidden layer linear ->
+    dropout -> LayerNorm -> activation, then an optional linear head.
+    Initialised as flax does (``lecun_normal`` kernels, zero biases).
+    ``layers``/``head`` are ``nn.Linear`` (weight (out, in), the flax kernel
+    transposed); the LayerNorms keep flax's formulas (:func:`layer_norm`)."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        hidden_sizes=(),
+        output_dim=None,
+        activation="relu",
+        layer_norm=False,
+        norm_args=None,
+        dropout=0.0,
+        flatten_dim=None,
+        device=None,
+    ):
+        super().__init__()
+        n = len(hidden_sizes)
+        self.acts = [resolve_activation(a) for a in _per_layer(activation, n)]
+        norms = _per_layer(layer_norm, n)
+        norm_args = _per_layer(norm_args, n)
+        drops = _per_layer(dropout, n)
+        self.flatten_dim = flatten_dim
+        self.layers = nn.ModuleList()
+        self.norms = nn.ModuleList()
+        self.drops = nn.ModuleList()
+        dims = [int(input_dim), *[int(h) for h in hidden_sizes]]
+        for i in range(n):
+            self.layers.append(self._linear(dims[i], dims[i + 1], device))
+            self.drops.append(nn.Dropout(float(drops[i])) if drops[i] else nn.Identity())
+            eps = (norm_args[i] or {}).get("eps", 1e-5) if isinstance(norm_args[i], dict) else 1e-5
+            self.norms.append(LayerNorm(dims[i + 1], eps=eps, device=device) if norms[i] else nn.Identity())
+        self.head = None if output_dim is None else self._linear(dims[-1], int(output_dim), device)
+
+    @staticmethod
+    def _linear(fan_in: int, fan_out: int, device) -> nn.Linear:
+        lin = nn.Linear(fan_in, fan_out, device=device)
+        lecun_normal_(lin.weight, fan_in)
+        nn.init.zeros_(lin.bias)
+        return lin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.flatten_dim is not None:
+            x = x.reshape(*x.shape[: self.flatten_dim], -1)
+        for lin, drop, norm, act in zip(self.layers, self.drops, self.norms, self.acts):
+            x = act(norm(drop(lin(x))))
+        return x if self.head is None else self.head(x)

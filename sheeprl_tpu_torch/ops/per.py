@@ -1,0 +1,255 @@
+"""The prioritized-replay sum-tree: hand-written CUDA kernels and their plain versions.
+
+Counterpart of ``sheeprl_tpu/ops/pallas_per.py``: ``sum_tree_sample`` (#5),
+``sum_tree_write`` (#6) and ``sum_tree_update`` (#7).  The tree is the
+1-based heap of ``replay/priority_tree.py``: a (2P,) f32 tensor, the root at
+1, leaf ``l`` at ``P + l``, slot 0 unused.
+
+- :func:`sum_tree_sample`: ``n`` proportional draws with exclusions folded
+  into the descent as mass corrections (the stored tree is not copied), and
+  the batch-max-normalised IS weights.  The uniforms ``r01`` are an input, so
+  a caller (or a test) decides where they come from.
+- :func:`sum_tree_write`: set leaves where ``active``, rebuild their
+  ancestors bottom-up, in place on ``tree``.
+- :func:`sum_tree_update`: the same write, and the running max
+  ``max(max_p, max(where(active, priorities, 0)))``, returned.
+
+The two writes pick each leaf's writer in a (P,) int32 scratch that holds -1
+on entry and again on exit: a caller that writes often keeps one from
+:func:`owner_scratch` and passes it as ``owner`` (``PriorityTree`` does), so a
+call costs the lanes' paths and no P-sized fill.
+
+Duplicates: a leaf that several active lanes write takes the value of the
+last of them (the highest lane index), which is what XLA's scatter keeps on
+the CPU; inactive lanes write nothing.  JAX parks an inactive lane at heap
+slot 0 and leaves junk there; here slot 0 is never written.
+
+Each wrapper computes its plain version for a tree on the CPU, and for a tree
+on a CUDA device launches the kernels of ``csrc/sum_tree.cu`` (counting one
+in its ``launches``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from sheeprl_tpu_torch.ops.build import CudaLibrary
+
+__all__ = [
+    "LIBRARY",
+    "owner_scratch",
+    "sum_tree_sample",
+    "sum_tree_sample_plain",
+    "sum_tree_update",
+    "sum_tree_update_plain",
+    "sum_tree_write",
+    "sum_tree_write_plain",
+]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sheeprl_sum_tree_sample.argtypes = [ptr, i32, ptr, i32, f32, f32, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+    lib.sheeprl_sum_tree_sample.restype = i32
+    lib.sheeprl_sum_tree_write.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr]
+    lib.sheeprl_sum_tree_write.restype = i32
+    lib.sheeprl_sum_tree_max_excl.argtypes = []
+    lib.sheeprl_sum_tree_max_excl.restype = i32
+
+
+LIBRARY = CudaLibrary("sum_tree.cu", "libsheeprl_sum_tree", _bind)
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _excl_args(tree: torch.Tensor, exclude_idx, exclude_active) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(E,) int32 leaves and (E,) bool mask on the tree's device, or (None, None)."""
+    if exclude_idx is None:
+        return None, None
+    excl = torch.as_tensor(exclude_idx, device=tree.device).reshape(-1).to(torch.int32)
+    if exclude_active is None:
+        eact = torch.ones(excl.shape, dtype=torch.bool, device=tree.device)
+    else:
+        eact = torch.as_tensor(exclude_active, device=tree.device).reshape(excl.shape).to(torch.bool)
+    return excl.contiguous(), eact.contiguous()
+
+
+def _scalar(x, tree: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(float(x), dtype=torch.float32, device=tree.device)
+
+
+# ------------------------------------------------------------------ plain
+def sum_tree_sample_plain(
+    tree: torch.Tensor, r01: torch.Tensor, beta, count, *, depth: int, exclude_idx=None, exclude_active=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_sample_kernel`` with ``_corrected_descent`` (``pallas_per.py:78-117``)
+    in torch ops: (n,) int32 leaves and (n,) f32 weights."""
+    p = 1 << depth
+    excl, eact = _excl_args(tree, exclude_idx, exclude_active)
+    node = torch.ones(r01.shape, dtype=torch.int64, device=tree.device)
+    total = tree[1]
+    if excl is not None:
+        enode = excl.long() + p
+        emass = torch.where(eact, tree[enode], torch.zeros((), device=tree.device))
+        total = total - emass.sum()
+    u = r01.float() * total
+    for lvl in range(depth):
+        child = 2 * node
+        left = tree[child]
+        if excl is not None:
+            anc = enode >> (depth - 1 - lvl)
+            left = left - torch.where(anc[None, :] == child[:, None], emass[None, :], torch.zeros((), device=tree.device)).sum(1)
+        right = u >= left
+        u = torch.where(right, u - left, u)
+        node = child + right.long()
+    mass = tree[node]
+    probs = torch.clamp_min(mass, _TINY) / torch.clamp_min(total, _TINY)
+    w = (torch.clamp_min(_scalar(count, tree), 1.0) * probs) ** (-_scalar(beta, tree))
+    return (node - p).to(torch.int32), w / w.max()
+
+
+def sum_tree_write_plain(tree: torch.Tensor, leaf_idx, values, active, *, depth: int) -> torch.Tensor:
+    """``_write_impl`` (``priority_tree.py:74-91``) in torch ops, in place on
+    ``tree``: one writer per leaf (the last active lane), then each touched
+    ancestor rebuilt from its final children.  Returns ``tree``."""
+    p = 1 << depth
+    active = torch.as_tensor(active, device=tree.device).reshape(-1).to(torch.bool)
+    leaf = torch.as_tensor(leaf_idx, device=tree.device).reshape(-1).long()[active]
+    vals = torch.as_tensor(values, device=tree.device).reshape(-1).to(tree.dtype)[active]
+    if leaf.numel() == 0:
+        return tree
+    uniq, inv = torch.unique(leaf, return_inverse=True)
+    lane = torch.arange(leaf.numel(), device=tree.device)
+    last = torch.full(uniq.shape, -1, dtype=torch.int64, device=tree.device).scatter_reduce_(0, inv, lane, "amax")
+    node = uniq + p
+    tree[node] = vals[last]
+    for _ in range(depth):
+        node = torch.unique(node >> 1)
+        tree[node] = tree[2 * node] + tree[2 * node + 1]
+    return tree
+
+
+def sum_tree_update_plain(tree: torch.Tensor, max_p, leaf_idx, priorities, active, *, depth: int) -> torch.Tensor:
+    """``_tree_update``: the running max (returned, 0-d f32), then the write
+    in place on ``tree``."""
+    pri = torch.as_tensor(priorities, device=tree.device).reshape(-1).to(tree.dtype)
+    act = torch.as_tensor(active, device=tree.device).reshape(-1).to(torch.bool)
+    new_max = torch.maximum(_scalar(max_p, tree), torch.where(act, pri, torch.zeros((), device=tree.device)).max())
+    sum_tree_write_plain(tree, leaf_idx, pri, act, depth=depth)
+    return new_max
+
+
+# ---------------------------------------------------------------- kernels
+def _check_tree(tree: torch.Tensor, depth: int, name: str) -> None:
+    if tree.dtype != torch.float32 or tree.dim() != 1 or not tree.is_contiguous():
+        raise TypeError(f"{name}: the tree must be a contiguous 1-d f32 tensor")
+    if tree.shape[0] != 2 << depth:
+        raise ValueError(f"{name}: a tree of depth {depth} has {2 << depth} slots, got {tree.shape[0]}")
+
+
+def _device(tree: torch.Tensor, name: str) -> None:
+    if tree.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {tree.device}")
+
+
+def sum_tree_sample(
+    tree: torch.Tensor, r01: torch.Tensor, beta, count, *, depth: int, exclude_idx=None, exclude_active=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n = r01.numel()`` proportional draws: (n,) int32 leaves and (n,) f32
+    IS weights normalised by their max.  ``exclude_idx`` (distinct where
+    active) are left out of the draw without touching the tree."""
+    if tree.device.type == "cpu":
+        return sum_tree_sample_plain(
+            tree, r01, beta, count, depth=depth, exclude_idx=exclude_idx, exclude_active=exclude_active
+        )
+    _device(tree, "sum_tree_sample")
+    _check_tree(tree, depth, "sum_tree_sample")
+    r01 = r01.to(tree.device, torch.float32).reshape(-1).contiguous()
+    excl, eact = _excl_args(tree, exclude_idx, exclude_active)
+    lib = LIBRARY.load()
+    n_excl = 0 if excl is None else int(excl.numel())
+    if n_excl > lib.sheeprl_sum_tree_max_excl():
+        raise ValueError(f"sum_tree_sample: {n_excl} exclusions, the kernel takes at most {lib.sheeprl_sum_tree_max_excl()}")
+    n = int(r01.numel())
+    leaf = torch.empty(n, dtype=torch.int32, device=tree.device)
+    w = torch.empty(n, dtype=torch.float32, device=tree.device)
+    wmax = torch.zeros(1, dtype=torch.float32, device=tree.device)
+    err = lib.sheeprl_sum_tree_sample(
+        tree.data_ptr(), int(depth), r01.data_ptr(), n, float(beta), float(count),
+        None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(), n_excl,
+        leaf.data_ptr(), w.data_ptr(), wmax.data_ptr(), torch.cuda.current_stream(tree.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sum_tree_sample kernel launch failed: cudaError {err}")
+    sum_tree_sample.launches += 1
+    return leaf, w
+
+
+def _write_args(tree: torch.Tensor, leaf_idx, values, active):
+    leaf = torch.as_tensor(leaf_idx, device=tree.device).reshape(-1).to(torch.int32).contiguous()
+    vals = torch.as_tensor(values, device=tree.device).reshape(-1).to(torch.float32).contiguous()
+    act = torch.as_tensor(active, device=tree.device).reshape(-1).to(torch.bool).contiguous()
+    if not leaf.numel() == vals.numel() == act.numel():
+        raise ValueError(f"sum-tree write: {leaf.numel()} leaves, {vals.numel()} values, {act.numel()} flags")
+    return leaf, vals, act
+
+
+def owner_scratch(depth: int, device) -> torch.Tensor:
+    """The writes' per-leaf scratch for a tree of ``depth``: (P,) int32 of -1."""
+    return torch.full((1 << depth,), -1, dtype=torch.int32, device=device)
+
+
+def _launch_write(tree, depth, leaf, vals, act, new_max: Optional[torch.Tensor], owner, name: str) -> None:
+    lib = LIBRARY.load()
+    if owner is None:
+        owner = owner_scratch(depth, tree.device)
+    elif owner.dtype != torch.int32 or owner.device != tree.device or owner.numel() != 1 << depth:
+        raise ValueError(f"{name}: owner must be {1 << depth} int32 on {tree.device}")
+    err = lib.sheeprl_sum_tree_write(
+        tree.data_ptr(), int(depth), leaf.data_ptr(), vals.data_ptr(), act.data_ptr(), int(leaf.numel()),
+        owner.data_ptr(), None if new_max is None else new_max.data_ptr(),
+        torch.cuda.current_stream(tree.device).cuda_stream,
+    )
+    if err != 0:
+        owner.fill_(-1)  # a launch that failed part-way may leave claims behind
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def sum_tree_write(tree: torch.Tensor, leaf_idx, values, active, *, depth: int, owner=None) -> torch.Tensor:
+    """Set ``leaf_idx`` to ``values`` where ``active`` and rebuild the touched
+    ancestors, in place on ``tree`` (returned).  Leaves must lie in [0, P).
+    ``owner`` is a scratch from :func:`owner_scratch` (by default one is made
+    for the call)."""
+    if tree.device.type == "cpu":
+        return sum_tree_write_plain(tree, leaf_idx, values, active, depth=depth)
+    _device(tree, "sum_tree_write")
+    _check_tree(tree, depth, "sum_tree_write")
+    leaf, vals, act = _write_args(tree, leaf_idx, values, active)
+    if leaf.numel():
+        _launch_write(tree, depth, leaf, vals, act, None, owner, "sum_tree_write")
+        sum_tree_write.launches += 1
+    return tree
+
+
+def sum_tree_update(tree: torch.Tensor, max_p, leaf_idx, priorities, active, *, depth: int, owner=None) -> torch.Tensor:
+    """The write of :func:`sum_tree_write` with ``priorities``, in place on
+    ``tree``; returns the new running max (0-d f32 on the tree's device)."""
+    if tree.device.type == "cpu":
+        return sum_tree_update_plain(tree, max_p, leaf_idx, priorities, active, depth=depth)
+    _device(tree, "sum_tree_update")
+    _check_tree(tree, depth, "sum_tree_update")
+    leaf, pri, act = _write_args(tree, leaf_idx, priorities, active)
+    if not leaf.numel():
+        raise ValueError("sum_tree_update: no lanes (the running max of nothing is undefined)")
+    new_max = torch.as_tensor(max_p, dtype=torch.float32, device=tree.device).reshape(1).clone()
+    _launch_write(tree, depth, leaf, pri, act, new_max, owner, "sum_tree_update")
+    sum_tree_update.launches += 1
+    return new_max[0]
+
+
+sum_tree_sample.launches = 0
+sum_tree_write.launches = 0
+sum_tree_update.launches = 0

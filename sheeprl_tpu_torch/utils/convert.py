@@ -1,4 +1,4 @@
-"""Carry the JAX package's DreamerV3 state into the port's modules.
+"""Carry the JAX package's DreamerV3 and SAC state into the port's modules.
 
 ``flax_to_torch(tree, agent)`` turns a parameter tree of ``sheeprl_tpu``
 (numpy arrays, as a checkpoint holds them) into a ``state_dict``:
@@ -8,7 +8,12 @@
   decoder and reward/continue heads are not served and are skipped;
 - for a :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.DreamerAgent`,
   the whole ``params`` tree ``{"world_model", "actor", "critic",
-  "target_critic"}``.
+  "target_critic"}``;
+- for a :class:`~sheeprl_tpu_torch.algos.sac.agent.SACAgent`, the SAC tree
+  ``{"actor", "critic", "target_critic", "log_alpha"}``: the actor's
+  ``MLP_0/Dense_{0,1}`` trunk and ``Dense_{0,1}`` mean/log-std heads, the
+  stacked critics' ``MLP_0/Dense_i`` kernels (N, in, out) and biases
+  (N, out) kept as they are (the layout the batched critic reads).
 
 Layouts:
 
@@ -25,7 +30,8 @@ Every leaf must find its place and every entry of the ``state_dict`` must
 be filled, or :class:`ConversionError` is raised.  :func:`opt_state_to_torch`
 carries an optax ``clip_by_global_norm`` + ``adam`` state (count, mu, nu)
 into the port's :class:`~sheeprl_tpu_torch.optim.AdamState` through the
-same mapping, and :func:`moments_to_torch` the Moments state.
+same mapping (for SAC the groups ``actor``, ``critic`` and ``alpha``), and
+:func:`moments_to_torch` the Moments state.
 """
 
 from __future__ import annotations
@@ -149,6 +155,23 @@ def _actor(m: _Mapper, actor, src: str, dst: str) -> None:
         m.dense(f"{src}/params/Dense_{i}", f"{dst}.heads.{i}")
 
 
+def _sac_actor(m: _Mapper, actor, src: str, dst: str) -> None:
+    for i in range(len(actor.trunk.layers)):
+        m.dense(f"{src}/params/MLP_0/Dense_{i}", f"{dst}.trunk.layers.{i}")
+    m.dense(f"{src}/params/Dense_0", f"{dst}.mean")
+    m.dense(f"{src}/params/Dense_1", f"{dst}.log_std")
+
+
+def _sac_critic(m: _Mapper, critic, src: str, dst: str) -> None:
+    for i in range(len(critic.weights)):
+        m.put(f"{dst}.weights.{i}", m.take(f"{src}/params/MLP_0/Dense_{i}/kernel"))
+        m.put(f"{dst}.biases.{i}", m.take(f"{src}/params/MLP_0/Dense_{i}/bias"))
+
+
+def _is_sac(agent: torch.nn.Module) -> bool:
+    return hasattr(agent, "log_alpha")
+
+
 def _finish(m: _Mapper, want: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     unknown = sorted(set(m.flat) - m.used)
     if unknown:
@@ -169,8 +192,19 @@ def _is_full_agent(agent: torch.nn.Module) -> bool:
 
 
 def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` for ``agent`` (a ``DreamerPlayer`` or a
-    ``DreamerAgent``) from the JAX tree described in the module docstring."""
+    """The ``state_dict`` for ``agent`` (a ``DreamerPlayer``, a
+    ``DreamerAgent`` or a ``SACAgent``) from the JAX tree described in the
+    module docstring."""
+    if _is_sac(agent):
+        expect = {"actor", "critic", "target_critic", "log_alpha"}
+        if set(tree) != expect:
+            raise ConversionError(f"expected keys {sorted(expect)}, got {sorted(tree)}")
+        m = _Mapper(flatten_tree(tree))
+        _sac_actor(m, agent.actor, "actor", "actor")
+        for name in ("critic", "target_critic"):
+            _sac_critic(m, getattr(agent, name), name, name)
+        m.put("log_alpha", m.take("log_alpha"))
+        return _finish(m, agent.state_dict())
     full = _is_full_agent(agent)
     expect = {"world_model", "actor", "critic", "target_critic"} if full else {"world_model", "actor"}
     if set(tree) != expect:
@@ -198,8 +232,12 @@ def _group_params(tree: Dict[str, Any], module: torch.nn.Module, group: str) -> 
     if group == "world_model":
         _encoder_rssm(m, module, group, group)
         _training_heads(m, module, group, group)
+    elif group == "actor" and hasattr(module, "log_std"):
+        _sac_actor(m, module, group, group)
     elif group == "actor":
         _actor(m, module, group, group)
+    elif hasattr(module, "biases"):
+        _sac_critic(m, module, group, group)
     else:
         m.mlp(f"{group}/params", group, len(module.layers), head=True)
     want = {f"{group}.{k}": v for k, v in module.named_parameters()}
@@ -221,13 +259,23 @@ def _adam_leaf(state: Any) -> Any:
 def opt_state_to_torch(state: Any, module: torch.nn.Module, group: str, device=None):
     """An optax ``chain(clip_by_global_norm, adam)`` state of one group as
     the port's :class:`~sheeprl_tpu_torch.optim.AdamState` for ``module``'s
-    parameters."""
+    parameters.  SAC's ``alpha`` group (``module`` the agent) maps its one
+    leaf to ``log_alpha``."""
     from sheeprl_tpu_torch.optim import AdamState
 
     adam = _adam_leaf(state)
     if adam is None:
         raise ConversionError(f"no Adam state (count, mu, nu) in the {group} optimizer state")
     dev = next(module.parameters()).device if device is None else device
+    if group == "alpha":
+        want = tuple(module.log_alpha.shape)
+        moments = []
+        for leaf in (adam.mu, adam.nu):
+            arr = np.array(leaf, dtype=np.float32)
+            if arr.shape != want:
+                raise ConversionError(f"alpha: flax gives {arr.shape}, the port holds {want}")
+            moments.append({"log_alpha": torch.from_numpy(arr).to(dev)})
+        return AdamState(int(np.asarray(adam.count)), *moments)
     mu = {k: v.to(dev) for k, v in _group_params(adam.mu, module, group).items()}
     nu = {k: v.to(dev) for k, v in _group_params(adam.nu, module, group).items()}
     return AdamState(int(np.asarray(adam.count)), mu, nu)

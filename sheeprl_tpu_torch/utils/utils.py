@@ -2,12 +2,21 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["lambda_values", "resolve_device", "symexp", "symlog", "two_hot_encoder"]
+__all__ = [
+    "ema_",
+    "grads_or_zeros",
+    "lambda_values",
+    "resolve_device",
+    "symexp",
+    "symlog",
+    "trainable_params",
+    "two_hot_encoder",
+]
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
@@ -68,3 +77,21 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def trainable_params(module: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """``module``'s parameters that take gradients, by name."""
+    return {k: p for k, p in module.named_parameters() if p.requires_grad}
+
+
+def grads_or_zeros(loss: torch.Tensor, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """d loss / d params; a parameter the loss does not reach gets zeros, as in JAX."""
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), got)}
+
+
+@torch.no_grad()
+def ema_(target: torch.nn.Module, source: torch.nn.Module, tau: float) -> None:
+    """``optax.incremental_update``: target = tau * source + (1 - tau) * target."""
+    for t, s in zip(target.parameters(), source.parameters()):
+        t.mul_(1.0 - tau).add_(s, alpha=tau)

@@ -97,3 +97,135 @@ def test_gru_backward_matches_plain_autograd(batch):
     assert gru_cell.launches == before + 1
     for a, b in zip(got, ref):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def _tree(n_leaves, priorities):
+    """A ``PriorityTree`` on the card holding ``priorities``."""
+    from sheeprl_tpu_torch.replay.priority_tree import PriorityTree
+
+    tree = PriorityTree(n_leaves, device="cuda")
+    tree.load_state_dict({"leaves": priorities.cpu().numpy(), "max_priority": 1.0})
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [8, 1000, 1 << 16])
+@pytest.mark.parametrize("n_excl", [0, 4, 63])
+def test_sum_tree_sample_matches_plain(n_leaves, n_excl):
+    """Draws with 0, 4 and 63 exclusions on integer-valued priorities (exact
+    sums): leaves identical to the plain version, weights to 1e-6 relative;
+    1000 leaves pad to 1024, and no padded or excluded leaf is drawn."""
+    from sheeprl_tpu_torch.ops.per import sum_tree_sample, sum_tree_sample_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(n_leaves + n_excl)
+    tree = _tree(n_leaves, torch.randint(0, 9, (n_leaves,), generator=g, device="cuda").float())
+    n_excl = min(n_excl, n_leaves - 2)
+    excl = torch.randperm(n_leaves, generator=g, device="cuda")[:n_excl].to(torch.int32) if n_excl else None
+    r01 = torch.rand(4096, generator=g, device="cuda")
+    before = sum_tree_sample.launches
+    leaf, w = sum_tree_sample(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl)
+    leaf_p, w_p = sum_tree_sample_plain(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl)
+    torch.cuda.synchronize()
+    assert sum_tree_sample.launches == before + 1
+    assert torch.equal(leaf, leaf_p) and int(leaf.max()) < n_leaves
+    assert ((w - w_p).abs() <= 1e-6 * w_p.abs()).all()
+    if excl is not None:
+        assert not torch.isin(leaf, excl).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [6, 1000, 1 << 20])
+def test_sum_tree_write_and_update_match_plain(n_leaves):
+    """Writes with equal duplicates, unequal active duplicates (the last
+    active lane wins) and inactive lanes, then an update with its running
+    max: tree slots 1.. bit-equal to the plain version.  The owner scratch
+    is shared by both calls and comes back all -1."""
+    from sheeprl_tpu_torch.ops.per import (
+        owner_scratch,
+        sum_tree_update,
+        sum_tree_update_plain,
+        sum_tree_write,
+        sum_tree_write_plain,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(n_leaves)
+    tree = _tree(n_leaves, torch.rand(n_leaves, generator=g, device="cuda"))
+    lanes = 4096
+    leaf = torch.randint(0, n_leaves, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+    leaf[2048:2560] = leaf[:512]
+    vals = torch.rand(lanes, generator=g, device="cuda")
+    vals[2048:2304] = vals[:256]
+    active = torch.rand(lanes, generator=g, device="cuda") < 0.7
+    a, b = tree.tree.clone(), tree.tree.clone()
+    owner = owner_scratch(tree.depth, "cuda")
+    before = (sum_tree_write.launches, sum_tree_update.launches)
+    sum_tree_write(a, leaf, vals, active, depth=tree.depth, owner=owner)
+    sum_tree_write_plain(b, leaf, vals, active, depth=tree.depth)
+    ma = sum_tree_update(a, torch.tensor(0.5, device="cuda"), leaf, vals * 2, active, depth=tree.depth, owner=owner)
+    mb = sum_tree_update_plain(b, torch.tensor(0.5, device="cuda"), leaf, vals * 2, active, depth=tree.depth)
+    torch.cuda.synchronize()
+    assert (sum_tree_write.launches, sum_tree_update.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(a[1:], b[1:]) and float(ma) == float(mb)
+    assert float(a[0]) == float(tree.tree[0])  # slot 0 is never written
+    assert bool((owner == -1).all())
+
+
+@pytest.mark.cuda
+def test_priority_tree_kernel_writes_keep_one_clean_scratch():
+    """``PriorityTree`` with the kernels: seeding, updates with unequal
+    duplicates and a decay, all through one scratch that stays -1 between
+    calls, each tree equal to the plain tree's."""
+    from sheeprl_tpu_torch.replay.priority_tree import PriorityTree
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    fast, plain = PriorityTree(1000, device="cuda", kernel="pallas"), PriorityTree(1000, device="cuda", kernel="lax")
+    for step in range(4):
+        leaf = torch.randint(0, 1000, (512,), generator=g, device="cuda")
+        td = torch.rand(512, generator=g, device="cuda")
+        for t in (fast, plain):
+            t.seed_max(leaf[:64], None)
+            t.update(leaf, td)
+            t.scale(leaf[:32], 0.5)
+        scratch = fast._owner
+        assert scratch is not None and bool((scratch == -1).all())
+        assert torch.equal(fast.tree[1:], plain.tree[1:]) and float(fast.max_priority) == float(plain.max_priority)
+    assert fast._owner is scratch  # made once
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,feat", [("uint8", ()), ("uint8", (1,)), ("uint8", (24,)), ("float32", (1,)), ("float32", (6,)), ("float32", (24,))])
+@pytest.mark.parametrize("next_obs", [False, True])
+def test_gather_transitions_bytes_exact(dtype, feat, next_obs):
+    """The transition gather against per-key advanced indexing, bytes exact:
+    rows of 1, 24 and 96 bytes beside a 1-byte flag key, successor rows
+    that wrap the ring, every key (and its successor) in one launch."""
+    from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(len(feat))
+    cap, n_envs, flat = 97, 4, 1000
+    shape = (cap, n_envs, *feat)
+    if dtype == "uint8":
+        ring = torch.randint(0, 256, shape, generator=g, device="cuda", dtype=torch.uint8)
+    else:
+        ring = torch.randn(shape, generator=g, device="cuda")
+    bufs = {"x": ring, "flag": torch.randint(0, 2, (cap, n_envs, 1), generator=g, device="cuda", dtype=torch.uint8)}
+    rows = torch.randint(0, cap, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    rows[:5] = cap - 1
+    envs = torch.randint(0, n_envs, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    next_keys = ("x", "flag") if next_obs else ()
+    before = gather_transitions.launches
+    out = gather_transitions(bufs, rows, envs, next_keys=next_keys)
+    ref = gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
+    torch.cuda.synchronize()
+    assert gather_transitions.launches == before + 1
+    assert set(out) == set(ref)
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype and torch.equal(out[k], ref[k]), k

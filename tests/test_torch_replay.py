@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from sheeprl_tpu.data import buffers as jax_buffers
-from sheeprl_tpu.data.device_buffer import DeviceReplayCache as JaxCache
+from sheeprl_tpu.data.device_buffer import DeviceReplayCache as _JaxCache
 from sheeprl_tpu.ops.pallas_gather import gather_windows_fused
 from sheeprl_tpu_torch.config import dotdict
 from sheeprl_tpu_torch.data import buffers as port_buffers
@@ -32,6 +32,31 @@ from sheeprl_tpu_torch.ops.gather import gather_windows, gather_windows_plain, w
 from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
 
 CAP, N_ENVS = 40, 3
+
+
+class JaxCache(_JaxCache):
+    """The JAX package's cache with its write heads and fill counts held as
+    int64.  The JAX cache hands its int32 ``_pos`` to the asynchronous
+    append jit as a zero-copy array and then advances ``_pos`` in place:
+    under load the append can read the advanced heads and write the wrong
+    rows (a few fills in a hundred; ROADMAP C).  An int64 array cannot be
+    aliased by the int32 argument, so each dispatch gets its own copy."""
+
+    @property
+    def _pos(self):
+        return self._pos64
+
+    @_pos.setter
+    def _pos(self, value):
+        self._pos64 = np.asarray(value, np.int64)
+
+    @property
+    def _filled(self):
+        return self._filled64
+
+    @_filled.setter
+    def _filled(self, value):
+        self._filled64 = np.asarray(value, np.int64)
 
 
 def _rows(rng, t_len, n_envs):
@@ -86,16 +111,21 @@ def test_flat_host_buffers_draw_the_same_rows(next_obs):
 
 
 def test_memmap_and_prioritized_replay_raise_until_ported():
+    """Memory-mapped host replay still raises; prioritized device replay is
+    ported (``tests/test_torch_replay_prioritized.py``) and builds its tree
+    with the rings."""
     with pytest.raises(NotImplementedError, match="memory-mapped"):
         port_buffers.ReplayBuffer(4, memmap=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        DeviceReplayCache(4, 1, prioritized=True)
+    cache = DeviceReplayCache(4, 1, device="cpu", prioritized=True)
+    assert cache.prioritized and cache.tree is None
+    cache.add({"x": np.zeros((2, 1, 3), np.float32)})
+    assert cache.tree.total == 2.0
 
 
 def _cache_pair(kernel, adds, seed=1):
     rng = np.random.default_rng(seed)
     j = JaxCache(CAP, N_ENVS, kernel=kernel)
-    p = DeviceReplayCache(CAP, N_ENVS, kernel=kernel)
+    p = DeviceReplayCache(CAP, N_ENVS, device="cpu", kernel=kernel)
     for t_len, idx in adds:
         data = _rows(rng, t_len, N_ENVS if idx is None else len(idx))
         j.add(data, idx)
@@ -120,7 +150,7 @@ def test_device_cache_rings_match_after_load_from():
     _, host = _fill_pair(jax_buffers.SequentialReplayBuffer, port_buffers.SequentialReplayBuffer, ADDS, seed=2)
     jhost, _ = _fill_pair(jax_buffers.SequentialReplayBuffer, port_buffers.SequentialReplayBuffer, ADDS, seed=2)
     j = JaxCache(CAP, N_ENVS)
-    p = DeviceReplayCache(CAP, N_ENVS)
+    p = DeviceReplayCache(CAP, N_ENVS, device="cpu")
     j.load_from(jhost)
     p.load_from(host)
     _assert_rings_equal(j, p)
@@ -188,7 +218,7 @@ def test_sequence_batches_host_and_cache_paths():
         assert batch["rgb"].dtype == torch.uint8 and batch["rewards"].dtype == torch.float32
         for k in want:
             assert np.array_equal(batch[k].numpy(), want[k][i].astype(batch[k].numpy().dtype)), k
-    cache = DeviceReplayCache(CAP, N_ENVS)
+    cache = DeviceReplayCache(CAP, N_ENVS, device="cpu")
     cache.load_from(host)
     with sequence_batches(host, cache, "cpu", 2, 4, 5, torch.Generator().manual_seed(0)) as feed:
         drawn = list(feed)
@@ -200,12 +230,16 @@ def test_maybe_create_for_follows_the_config():
     rb = port_buffers.EnvIndependentReplayBuffer(CAP, n_envs=2, buffer_cls=port_buffers.SequentialReplayBuffer)
 
     def cfg(**buffer):
-        return dotdict({"buffer": {"device_cache": "auto", "per_kernel": "lax", "prioritized": False, **buffer}})
+        return dotdict(
+            {"buffer": {"device_cache": "auto", "per_kernel": "lax", "prioritized": False, "per_decay_on_sample": 0.5, **buffer}}
+        )
 
     assert maybe_create_for(cfg(), rt, rb) is None  # auto stays on the host on a CPU run
     assert maybe_create_for(cfg(device_cache=False), rt, rb) is None
     cache = maybe_create_for(cfg(device_cache=True, per_kernel="pallas"), rt, rb)
     assert cache is not None and cache.kernel == "pallas" and cache.capacity == CAP and cache.n_envs == 2
     assert maybe_create_for(cfg(device_cache=True), rt, port_buffers.ReplayBuffer(4)) is None
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        maybe_create_for(cfg(device_cache=True, prioritized=True), rt, rb)
+    per = maybe_create_for(cfg(prioritized=True), rt, rb)  # PER keeps the cache on, even on a CPU run
+    assert per is not None and per.prioritized and per.per_decay == 0.5
+    with pytest.raises(ValueError, match="prioritized"):
+        maybe_create_for(cfg(device_cache=False, prioritized=True), rt, rb)

@@ -27,7 +27,9 @@ from sheeprl_tpu.serve.sessions import session_knobs as jax_session_knobs
 from sheeprl_tpu.utils.ckpt_format import save_state
 from sheeprl_tpu_torch.config import compose as port_compose
 from sheeprl_tpu_torch.config import dotdict
+from sheeprl_tpu_torch.data.device_buffer import DeviceReplayCache
 from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+from sheeprl_tpu_torch.replay.priority_tree import PriorityTree
 from sheeprl_tpu_torch.serve.policy import agent_params_loader, make_dreamer_session_fns, row_gumbel, row_seeds
 from sheeprl_tpu_torch.serve.sessions import build_server, session_knobs
 from sheeprl_tpu_torch.serve.serve_policy import (
@@ -306,5 +308,13 @@ def test_default_device_entry_points_raise_without_cuda():
     space = {"rgb": ObsSpec((16, 16, 3), np.float32), "state": ObsSpec((5,), np.float32)}
     with pytest.raises(RuntimeError, match="CUDA"):
         build_dreamer_server(cfg, None, space, ACTIONS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceReplayCache(4, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceReplayCache(4, 1, prioritized=True, kernel="pallas")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PriorityTree(8)
+    assert DeviceReplayCache(4, 1, device="cpu").device.type == "cpu"
+    assert PriorityTree(8, device="cpu").tree.device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
     assert os.path.exists(REPO / "sheeprl_tpu_torch" / "csrc" / "gru_cell.cu")
