@@ -23,11 +23,16 @@ random weights drawn from a seed):
 - SAC: three dispatches of G = 64 gradient steps of B = 256 (DMC
   walker-walk shapes, 1,000,000 transitions of prioritized replay at full
   size) through ``train_dispatch`` with the sum-tree and transition-gather
-  kernels, then again from the same state with ``per_kernel=lax``.
+  kernels, then again from the same state with ``per_kernel=lax``;
+- decoupled DV3-S: ``train_steps`` of DreamerV3-S with the decoupled RSSM
+  (MsPacman 100K shapes: 64x64 RGB, 9 actions) on the full 100,000-row
+  ring, three gradient steps with the sequence GRU kernel (the dynamic
+  recurrence, one launch a step), the GRU step kernel (imagination) and the
+  window gather, then the same steps plain.
 
 Before the paths it checks the sum-tree kernels (sample, write, update) on a
-1,000,000-leaf tree and the transition gather, each against its plain
-version.
+1,000,000-leaf tree, the transition gather and the sequence GRU (forward
+and backward), each against its plain version.
 
 It prints one line per phase.  The line before the last is a JSON object
 with each kernel's numbers; the last line is ``{"ok": true, "device":
@@ -140,6 +145,33 @@ XL_CRAFTER = {
 CRAFTER_OBS = {"rgb": (64, 64, 3), "reward": (1,)}
 CRAFTER_ACTIONS = (17,)
 
+
+def _ms_pacman() -> dict:
+    """DreamerV3-S on Atari MsPacman 100K with the decoupled RSSM, as the port
+    composes `exp=dreamer_v3_100k_ms_pacman algo.world_model.decoupled_rssm=True
+    algo.world_model.recurrent_model.fused_seq=True
+    algo.world_model.recurrent_model.fused=True algo.cnn_keys.encoder=[rgb]
+    algo.mlp_keys.encoder=[] fabric.precision=32-true buffer.device_cache=True
+    buffer.per_kernel=pallas buffer.memmap=False` (a CPU test pins the two
+    together): canonical config 4 of BASELINE.md with the window-gather kernel on."""
+    cfg = copy.deepcopy(XL_CRAFTER)
+    algo, wm = cfg["algo"], cfg["algo"]["world_model"]
+    algo["mlp_keys"] = {"encoder": [], "decoder": []}
+    wm["decoupled_rssm"] = True
+    for node in (wm["encoder"], wm["observation_model"]):
+        node.update(cnn_channels_multiplier=32, mlp_layers=2, dense_units=512)
+    wm["recurrent_model"].update(recurrent_state_size=512, dense_units=512, fused_seq=True)
+    wm["transition_model"]["hidden_size"] = 512
+    for node in (wm["reward_model"], wm["discount_model"], algo["actor"], algo["critic"]):
+        node.update(mlp_layers=2, dense_units=512)
+    cfg["buffer"]["size"] = 100000
+    return cfg
+
+
+S_PACMAN = _ms_pacman()
+PACMAN_OBS = {"rgb": (64, 64, 3)}
+PACMAN_ACTIONS = (9,)
+
 # H100 SXM (NVIDIA data sheet, dense): HBM3 rate, FP32 outside the tensor
 # cores, bf16 tensor cores.  The power limit printed beside the numbers says
 # whether the card ran at the 700 W these rates assume.
@@ -171,6 +203,18 @@ LOSS_ATOL = 1e-4
 # Adam moves each weight by about lr (<= 1e-4) a step whatever the gradient's
 # size, so a sign that differs moves a weight by 2 lr: 3 steps, 2 runs
 PARAM_ATOL = 1e-3
+
+# The decoupled DV3-S phase: the full 100,000-row MsPacman ring (no cut), and
+# the XL phase's tolerances for kernels against plain (LOSS_RTOL, PARAM_ATOL).
+PACMAN_CAPACITY = 100000
+# gru_sequence against its plain loop, at T = 64: each step's sum of K = 1024
+# products in another order (~1e-6 of the state, as the cell's 2e-5), carried
+# through 64 steps whose update gate mixes old and new state
+SEQ_TOL = 1e-4
+# its backward (efficient BPTT from the kernel's states) against autograd
+# through the plain loop: two formulations of the same gradient, 64 steps
+# deep, each from its own forward; of each gradient's largest magnitude
+SEQ_GRAD_RTOL = 1e-3
 
 # SAC on DMC walker-walk, as the port composes `exp=sac_dmc_walker_walk
 # buffer.prioritized=True buffer.per_kernel=pallas buffer.device_cache=True
@@ -468,6 +512,101 @@ def check_gru_backward(torch, gru_cell, gru_cell_plain) -> list:
     return rows
 
 
+def seq_gru_bound_ms(steps: int, batch: int, hidden: int, xdim: int) -> tuple:
+    """Least time for the sequence: W, xs, h0, init_rec, is_first, gamma and
+    beta read once and hs written once at the memory rate, against the T
+    products' 2*T*B*K*3H operations plus ~12 per element of each (B, 3H)
+    LayerNorm and gates, at the f32 rate."""
+    k, n = hidden + xdim, 3 * hidden
+    nbytes = 4 * (k * n + steps * batch * xdim + 2 * batch * hidden + steps * batch + 2 * n + steps * batch * hidden)
+    ops = 2 * steps * batch * k * n + 12 * steps * batch * n
+    return bound(nbytes, ops)
+
+
+def check_seq_gru_kernel(torch) -> dict:
+    """The sequence kernel against its plain loop, with resets mid-sequence:
+    at the decoupled DV3-S cell's shape (T = 64, B = 16, H = X = 512) and at
+    T = 5, B = 3, H = X = 128 (the smallest eligible width, an odd batch);
+    then, at the cell's shape, the autograd op's gradients (kernel forward,
+    efficient-BPTT backward) against autograd through the plain loop, and
+    the times.  Returns the cell's row."""
+    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(steps, batch, hidden, xdim):
+        is_first = torch.zeros(steps, batch, 1, device="cuda")
+        is_first[0, 0] = 1.0  # the other rows start from h0, so dh0 is not all zero
+        is_first[steps // 2, batch // 2] = 1.0
+        is_first[steps - 1, 0] = 1.0
+        return [
+            torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
+            torch.randn(steps, batch, xdim, device="cuda", generator=g),
+            torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5,
+            1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+            0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+            is_first,
+            torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
+        ]
+
+    errs = {}
+    for shape in ((64, 16, 512, 512), (5, 3, 128, 128)):
+        args = inputs(*shape)
+        out = gru_sequence(*args)
+        ref = gru_sequence_plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"gru_sequence {shape}: shape {tuple(out.shape)} or non-finite output")
+        errs["T={} B={} H={} X={}".format(*shape)] = float((out - ref).abs().max())
+    if max(errs.values()) > SEQ_TOL:
+        raise AssertionError(f"gru_sequence: max abs err {errs} > {SEQ_TOL}")
+
+    steps, batch, hidden, xdim = 64, 16, 512, 512
+    args = inputs(steps, batch, hidden, xdim)
+    diff = (0, 1, 2, 3, 4, 6)  # every input but is_first
+    leaves = [a.requires_grad_(i in diff) for i, a in enumerate(args)]
+    wanted = [leaves[i] for i in diff]
+    up = torch.randn(steps, batch, hidden, device="cuda", generator=g)
+    got = torch.autograd.grad(gru_sequence(*leaves), wanted, up)
+    ref = torch.autograd.grad(gru_sequence_plain(*leaves), wanted, up)
+    torch.cuda.synchronize()
+    grad_errs = {}
+    for name, a, b in zip(("h0", "xs", "w", "gamma", "beta", "init_rec"), got, ref):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"gru_sequence backward: non-finite d{name}")
+        grad_errs[name] = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    if max(grad_errs.values()) > SEQ_GRAD_RTOL:
+        raise AssertionError(f"gru_sequence backward: relative error {grad_errs} > {SEQ_GRAD_RTOL}")
+
+    plain_args = [a.detach() for a in leaves]
+    h0, xs, w = plain_args[:3]
+
+    inps = [torch.cat([h0, xs[t]], -1) for t in range(steps)]
+
+    def products():  # the T products alone, as the plain loop makes them
+        for inp in inps:
+            torch.matmul(inp, w)
+
+    def fwd_bwd(fn):
+        torch.autograd.grad(fn(*leaves), wanted, up)
+
+    b_ms, b_by = seq_gru_bound_ms(steps, batch, hidden, xdim)
+    row = {
+        "shape": f"T={steps}, B={batch}, H={hidden}, X={xdim}, f32",
+        "max_abs_err": max(errs.values()), "max_abs_err_by_shape": errs, "tol": SEQ_TOL,
+        "grad_max_rel_err": grad_errs, "grad_rtol": SEQ_GRAD_RTOL,
+        "ms": time_ms(torch, lambda: gru_sequence(*plain_args)),
+        "plain_ms": time_ms(torch, lambda: gru_sequence_plain(*plain_args), iters=5),
+        "library_ms": time_ms(torch, products, iters=5),
+        "device_ms": device_ms(torch, lambda: gru_sequence(*plain_args)),
+        "fwd_bwd_ms": time_ms(torch, lambda: fwd_bwd(gru_sequence), iters=5, warmup=1),
+        "plain_fwd_bwd_ms": time_ms(torch, lambda: fwd_bwd(gru_sequence_plain), iters=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    phase("gru_sequence", **row)
+    return row
+
+
 def crafter_transitions(rng, rows: int, actions: int) -> dict:
     """Seeded transitions shaped like Crafter's, in the layout ``main``
     stores: (rows, 1 env, ...), uint8 frames, f32 the rest."""
@@ -489,29 +628,49 @@ def crafter_transitions(rng, rows: int, actions: int) -> dict:
     }
 
 
-def fill_replay(cfg, device, capacity: int, *, seed: int = 5, chunk: int = 4096, tail: int = 96):
+def pacman_transitions(rng, rows: int) -> dict:
+    """Seeded transitions shaped like MsPacman's at 64x64 RGB (9 actions,
+    rewards of 0 or 10), in the layout ``main`` stores: 12,340 bytes a row."""
+    import numpy as np
+
+    act = np.zeros((rows, 1, 9), np.float32)
+    act[np.arange(rows), 0, rng.integers(0, 9, rows)] = 1.0
+    terminated = (rng.random((rows, 1, 1)) < 1e-3).astype(np.float32)
+    return {
+        "rgb": rng.integers(0, 256, size=(rows, 1, 64, 64, 3), dtype=np.uint8),
+        "actions": act,
+        "rewards": 10.0 * (rng.random((rows, 1, 1)) < 0.05).astype(np.float32),
+        "terminated": terminated,
+        "truncated": np.zeros((rows, 1, 1), np.float32),
+        "is_first": np.roll(terminated, 1, axis=0),
+    }
+
+
+def fill_replay(cfg, device, capacity: int, *, seed: int = 5, chunk: int = 4096, tail: int = 96, transitions=None):
     """The replay window the training phase samples: the host buffer's
     ``add`` in chunks, more rows than fit (the ring wraps), then the device
     cache's ``load_from``, then ``tail`` single rows through both ``add``s
-    as the env loop writes them.  Raises unless the cache's rings equal the
-    host buffer byte for byte."""
+    as the env loop writes them.  ``transitions(rng, rows)`` makes the rows
+    (Crafter's by default).  Raises unless the cache's rings equal the host
+    buffer byte for byte."""
     import numpy as np
     import torch
 
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.data.device_buffer import DeviceReplayCache
 
+    make = transitions or (lambda rng, rows: crafter_transitions(rng, rows, 17))
     rng = np.random.default_rng(seed)
     rb = EnvIndependentReplayBuffer(capacity, n_envs=1, memmap=bool(cfg.buffer.memmap), buffer_cls=SequentialReplayBuffer)
     rb.seed(seed)
     t0 = time.perf_counter()
     total = capacity + capacity // 4
     for start in range(0, total, chunk):
-        rb.add(crafter_transitions(rng, min(chunk, total - start), 17))
+        rb.add(make(rng, min(chunk, total - start)))
     cache = DeviceReplayCache(capacity, 1, device=device, kernel=str(cfg.buffer.per_kernel))
     cache.load_from(rb)
     for _ in range(tail):
-        row = crafter_transitions(rng, 1, 17)
+        row = make(rng, 1)
         rb.add(row)
         cache.add(row)
     if device != "cpu":
@@ -610,14 +769,19 @@ class _DrawRecorder:
         self.module.compute_stochastic_state = self.inner
 
 
-def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STEPS, capacity: int = TRAIN_CAPACITY) -> dict:
-    """The training phase: the XL agent from ``cfg.seed``, the replay window
-    of :func:`fill_replay`, ``steps`` calls of ``train_steps`` (one gradient
-    step and one draw each, as the env loop makes them) with the kernels,
-    then the same calls from the same state with the plain GRU and
-    ``per_kernel=lax``.  The launch counters are set to 0 just before the
-    kernel run and read just after it.  Then path B on the same replay
-    (:func:`prioritized_starts`), under ``res["per"]``."""
+def run_training(
+    cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STEPS, capacity: int = TRAIN_CAPACITY,
+    transitions=None, per: bool = True, profile: bool = False,
+) -> dict:
+    """The training phase: the agent from ``cfg.seed``, the replay window of
+    :func:`fill_replay` (rows from ``transitions``), ``steps`` calls of
+    ``train_steps`` (one gradient step and one draw each, as the env loop
+    makes them) with the kernels, then the same calls from the same state
+    with the plain GRU step, the plain GRU sequence and ``per_kernel=lax``.
+    The launch counters are set to 0 just before the kernel run and read
+    just after it.  With ``per``, path B on the same replay
+    (:func:`prioritized_starts`), under ``res["per"]``; with ``profile``,
+    one more kernel step under ``torch.profiler``, under ``res["profile"]``."""
     import numpy as np
     import torch
 
@@ -626,6 +790,7 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_state, train_steps
     from sheeprl_tpu_torch.ops.gather import gather_windows
     from sheeprl_tpu_torch.ops.gru_cell import gru_cell, gru_cell_plain
+    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
     from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
 
     class _Space:
@@ -634,24 +799,27 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
 
     runtime = MeshRuntime(device=device, precision=cfg.fabric.precision, seed=int(cfg.seed)).launch()
     agent = build_agent(runtime, actions_dim, False, cfg, {k: _Space(s) for k, s in obs_shapes.items()})
+    rssm = agent.world_model.rssm
     initial = copy.deepcopy(agent.state_dict())
-    rb, cache, fill = fill_replay(cfg, device, capacity)
+    rb, cache, fill = fill_replay(cfg, device, capacity, transitions=transitions)
     phase("replay_fill", **fill)
     seq_len, batch = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
     gather_row = check_gather_kernel(torch, cache, seq_len, batch) if device != "cpu" else None
     n_params = sum(p.numel() for p in agent.parameters())
+    counters = (gru_cell, gru_sequence, gather_windows)
 
     def run(kernels: bool, n: int) -> dict:
         agent.load_state_dict(initial)
-        agent.world_model.rssm.recurrent_model.gru.impl = gru_cell if kernels else gru_cell_plain
+        rssm.recurrent_model.gru.impl = gru_cell if kernels else gru_cell_plain
+        rssm.seq_impl = gru_sequence if kernels else gru_sequence_plain
         cache.kernel = "pallas" if kernels else "lax"
         state = make_train_state(runtime, agent, cfg, False, actions_dim)
         gen = torch.Generator(device=device).manual_seed(int(cfg.seed))
         if device != "cpu":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        gru_cell.launches = 0
-        gather_windows.launches = 0
+        for c in counters:
+            c.launches = 0
         metrics, step_ms = [], []
         with _DrawRecorder(agent_module) as rec:
             for _ in range(n):
@@ -661,7 +829,7 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
                     torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 metrics.extend({k: float(v) for k, v in m.items()} for m in out)
-        launches = {"gru_cell": gru_cell.launches, "gather_windows": gather_windows.launches}
+        launches = {c.__name__: c.launches for c in counters}
         for i, m in enumerate(metrics):
             bad = [k for k, v in m.items() if not np.isfinite(v)]
             if bad:
@@ -673,21 +841,28 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
             "draws": rec.draws,
             "params": {k: v.detach().clone() for k, v in agent.state_dict().items()},
             "max_memory_allocated": torch.cuda.max_memory_allocated() if device != "cpu" else None,
+            # kept only to profile one more step: an XL optimizer state is GBs
+            "state": state if profile else None,
         }
 
     run(False, 1)  # warm the libraries' per-shape state for both runs
     run(True, 1)
     fast = run(True, steps)
     plain = run(False, steps)
-    agent.world_model.rssm.recurrent_model.gru.impl = gru_cell
+    rssm.recurrent_model.gru.impl = gru_cell
+    rssm.seq_impl = gru_sequence
     cache.kernel = str(cfg.buffer.per_kernel)
 
-    want_gru = (seq_len + int(cfg.algo.horizon)) * steps
-    if device != "cpu":
-        if fast["launches"]["gru_cell"] != want_gru:
-            raise AssertionError(f"gru_cell launched {fast['launches']['gru_cell']} times, want {want_gru}")
-        if fast["launches"]["gather_windows"] != steps:
-            raise AssertionError(f"gather_windows launched {fast['launches']['gather_windows']} times for {steps} draws")
+    # the decoupled RSSM with an eligible size runs the dynamic recurrence as
+    # one gru_sequence; otherwise it takes one GRU step per row of the window
+    seq_route = rssm.decoupled and rssm.seq_scan_eligible(int(cfg.algo.world_model.recurrent_model.dense_units))
+    want = {
+        "gru_cell": (int(cfg.algo.horizon) + (0 if seq_route else seq_len)) * steps,
+        "gru_sequence": steps if seq_route else 0,
+        "gather_windows": steps,
+    }
+    if device != "cpu" and fast["launches"] != want:
+        raise AssertionError(f"kernel launches {fast['launches']} over {steps} steps, want {want}")
     worst_loss = {}
     for i, (a, b) in enumerate(zip(fast["metrics"], plain["metrics"])):
         for k in a:
@@ -714,12 +889,24 @@ def run_training(cfg, obs_shapes, actions_dim, device, *, steps: int = TRAIN_STE
         "step_ms_kernels": fast["step_ms"],
         "step_ms_plain": plain["step_ms"],
         "launches": fast["launches"],
-        "gru_launches_expected": want_gru,
+        "launches_expected": want,
         "max_memory_allocated": fast["max_memory_allocated"],
         "max_memory_allocated_plain": plain["max_memory_allocated"],
         "gather": gather_row,
     }
-    res["per"] = prioritized_starts(cfg, runtime, agent, rb, actions_dim)
+    if profile and device != "cpu":
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        # device time of one more kernel step; the idle share is taken
+        # against the kernel run's step time without the profiler
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_steps(fast["state"], rb, cache, cfg, 1, gen)
+            torch.cuda.synchronize()
+        res["profile"] = _device_time(torch, prof, 1, float(np.median(fast["step_ms"])))
+    if per:
+        res["per"] = prioritized_starts(cfg, runtime, agent, rb, actions_dim)
     return res
 
 
@@ -766,7 +953,7 @@ def bound(nbytes: float, flops: float = 0.0) -> tuple:
 def check_sum_tree_kernels(torch) -> dict:
     """The three sum-tree kernels against their plain versions on a
     1,000,000-leaf tree (P = 2^20), at the SAC dispatch's n = 16,384 draws:
-    sample with 0, 4 and 63 exclusions on integer-valued priorities (leaves
+    sample with 0, 4, 63 and 2016 exclusions on integer-valued priorities (leaves
     identical) and on random f32 ones (flips counted; none without
     exclusions); writes with equal duplicates, unequal active duplicates and
     inactive lanes (slots 1.. bit-equal); an update (tree and running max
@@ -786,7 +973,9 @@ def check_sum_tree_kernels(torch) -> dict:
     n = TREE_DRAWS
     r01 = torch.rand(n, generator=g, device="cuda")
     rows = {}
-    for n_excl in (0, 4, 63):
+    # 2016 = 63 x 32 envs: DV3's prioritized starts at L = 64 on 32 envs,
+    # more exclusions than one shared-memory chunk holds
+    for n_excl in (0, 4, 63, 2016):
         excl = None
         if n_excl:
             excl = torch.from_numpy(rng.choice(TREE_LEAVES, n_excl, replace=False).astype(np.int32)).cuda()
@@ -1273,6 +1462,8 @@ def profile_training(steps: int) -> dict:
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
+    if "gru_sequence" in n:
+        return "gru_sequence (hand-written)"
     if "gru_" in n:
         return "gru_cell (hand-written)"
     if "gather_windows" in n:
@@ -1283,7 +1474,7 @@ def _kernel_group(name: str) -> str:
         return "sum_tree (hand-written)"
     if "memcpy" in n or "memset" in n:
         return "copies"
-    if "conv" in n or "implicit" in n or "winograd" in n or "fft" in n:
+    if any(k in n for k in ("conv", "implicit", "winograd", "fft", "wgrad", "dgrad")):
         return "convolutions (cuDNN)"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n:
         return "matmuls (cuBLAS)"
@@ -1380,6 +1571,7 @@ def main() -> int:
     from sheeprl_tpu_torch.ops import gather as gather_ops
     from sheeprl_tpu_torch.ops import gru_cell as gru_ops
     from sheeprl_tpu_torch.ops import per as per_ops
+    from sheeprl_tpu_torch.ops import seq_gru as seq_ops
 
     gru_cell, gru_cell_plain = gru_ops.gru_cell, gru_ops.gru_cell_plain
 
@@ -1390,7 +1582,9 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build: every kernel of both paths, side by side
-    phase("build", **build_kernels([gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY]))
+    phase("build", **build_kernels(
+        [gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY, seq_ops.LIBRARY]
+    ))
 
     if "--profile" in sys.argv:
         i = sys.argv.index("--profile")
@@ -1412,6 +1606,7 @@ def main() -> int:
     check_gru_backward(torch, gru_cell, gru_cell_plain)
     tree_rows = check_sum_tree_kernels(torch)
     check_transitions_gather(torch)
+    seq_row = check_seq_gru_kernel(torch)
 
     # 4. serving: DV3-XL sessions through the port's server
     gru_cell.launches = 0  # set again inside, just before the served run
@@ -1452,8 +1647,22 @@ def main() -> int:
     phase("sac_training", **sac)
     if sac_profile is not None:
         phase("sac_profile", **sac_profile)
+    torch.cuda.empty_cache()
 
-    # 8. purity
+    # 8. decoupled DV3-S training on the full MsPacman ring: gru_sequence,
+    # the GRU step (imagination) and the window gather, then plain
+    dec = run_training(
+        dotdict(S_PACMAN), PACMAN_OBS, PACMAN_ACTIONS, "cuda", capacity=PACMAN_CAPACITY,
+        transitions=pacman_transitions, per=False, profile=True,
+    )
+    dec.pop("gather")
+    dec_profile = dec.pop("profile")
+    phase("training_decoupled_losses", kernels=dec.pop("losses_kernels"), plain=dec.pop("losses_plain"))
+    phase("training_decoupled", **dec)
+    phase("training_decoupled_profile", **dec_profile)
+    torch.cuda.empty_cache()
+
+    # 9. purity
     bad = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu")
@@ -1470,8 +1679,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/gru_cell.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:134",
-            "launches": serve_launches + train["launches"]["gru_cell"],
-            "launches_by_path": {"serving": serve_launches, "training": train["launches"]["gru_cell"]},
+            "launches": serve_launches + train["launches"]["gru_cell"] + dec["launches"]["gru_cell"],
+            "launches_by_path": {"serving": serve_launches, "training": train["launches"]["gru_cell"],
+                                 "training_decoupled": dec["launches"]["gru_cell"]},
             "max_abs_err": max(r["max_abs_err"] for r in gru_rows if r["wdtype"] == "float32"),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -1486,9 +1696,11 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/gather_windows.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gather.py:84",
-            "launches": train["launches"]["gather_windows"] + per_train["launches"]["gather_windows"],
+            "launches": train["launches"]["gather_windows"] + per_train["launches"]["gather_windows"]
+            + dec["launches"]["gather_windows"],
             "launches_by_path": {"training": train["launches"]["gather_windows"],
-                                 "training_per": per_train["launches"]["gather_windows"]},
+                                 "training_per": per_train["launches"]["gather_windows"],
+                                 "training_decoupled": dec["launches"]["gather_windows"]},
             "max_abs_err": gather_row["max_abs_err"],
             "ms": gather_row["ms"],
             "plain_ms": gather_row["plain_ms"],
@@ -1507,13 +1719,19 @@ def main() -> int:
                       {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"]},
                       tree_rows["sample_e0"], f"{TREE_DRAWS} draws, {TREE_LEAVES} leaves, no exclusions",
                       ms_e63=tree_rows["sample_e63"]["ms"], bound_ms_e63=tree_rows["sample_e63"]["bound_ms"],
-                      flips_f32_e63=tree_rows["sample_e63"]["checks"]["f32"]["flips"]),
+                      flips_f32_e63=tree_rows["sample_e63"]["checks"]["f32"]["flips"],
+                      ms_e2016=tree_rows["sample_e2016"]["ms"], device_ms_e2016=tree_rows["sample_e2016"]["device_ms"],
+                      bound_ms_e2016=tree_rows["sample_e2016"]["bound_ms"],
+                      flips_integer_e2016=tree_rows["sample_e2016"]["checks"]["integer"]["flips"]),
         _kernel_entry("sum_tree_write", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:252",
                       {"sac": sac["launches"]["sum_tree_write"], "training_per": per_train["launches"]["sum_tree_write"]},
                       tree_rows["sum_tree_write"], "256 lanes (one SAC flush), 2^20-leaf tree"),
         _kernel_entry("sum_tree_update", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:275",
                       {"sac": sac["launches"]["sum_tree_update"]},
                       tree_rows["sum_tree_update"], f"{TREE_DRAWS} lanes, 2^20-leaf tree"),
+        _kernel_entry("gru_sequence", "sheeprl_tpu_torch/csrc/seq_gru.cu", "sheeprl_tpu/ops/seq_gru.py:126",
+                      {"training_decoupled": dec["launches"]["gru_sequence"]}, seq_row, seq_row["shape"],
+                      fwd_bwd_ms=seq_row["fwd_bwd_ms"], plain_fwd_bwd_ms=seq_row["plain_fwd_bwd_ms"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

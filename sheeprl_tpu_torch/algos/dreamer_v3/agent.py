@@ -3,8 +3,9 @@
 Counterpart of ``sheeprl_tpu/algos/dreamer_v3/agent.py``: ``LinearLnAct``,
 ``DreamerMLP``, the encoders and decoders, ``RecurrentModel``,
 ``compute_stochastic_state``, ``RSSM`` (recurrent step, representation,
-transition, initial states, and the training scan's ``dynamic_posterior``
-and ``imagination``), ``Actor``, ``PlayerDV3`` and ``build_agent``, which
+transition, initial states, the training scan's ``dynamic_posterior`` and
+``imagination``, and the decoupled RSSM's ``recurrent_features_seq``,
+``gru_step_gated`` and ``gru_sequence_gated``), ``Actor``, ``PlayerDV3`` and ``build_agent``, which
 builds the world model with its observation, reward and continue models,
 the actor, the critic and a target critic that starts as a copy.
 :func:`build_player` builds only what the session server runs.
@@ -32,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sheeprl_tpu_torch.models.models import LayerNorm, LayerNormGRUCell, flax_init_, ln_act_apply, resolve_activation
+from sheeprl_tpu_torch.ops.seq_gru import gru_sequence
 from sheeprl_tpu_torch.utils.distribution import (
     Independent,
     Normal,
@@ -414,6 +416,7 @@ class RSSM(nn.Module):
         learnable_initial_recurrent_state: bool = True,
         decoupled: bool = False,
         fused_gru: bool = False,
+        fused_seq: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
@@ -424,6 +427,10 @@ class RSSM(nn.Module):
         self.discrete_size = int(discrete_size)
         self.unimix = float(unimix)
         self.decoupled = bool(decoupled)
+        self.fused_seq = bool(fused_seq)
+        # the sequence op of gru_sequence_gated; a comparison may set it to
+        # gru_sequence_plain to run the plain version on the card
+        self.seq_impl = gru_sequence
         self.layer_norm = bool(layer_norm)
         self.act = act
         self.dtype = dtype
@@ -538,6 +545,59 @@ class RSSM(nn.Module):
             emb_proj, recurrent_state, noise=noise, generator=generator
         )
         return recurrent_state, posterior, posterior_logits
+
+    # ---- the decoupled RSSM's training scan: posteriors come from the
+    # embedded observations alone, so only the GRU is sequential
+    def recurrent_features_seq(
+        self,
+        prev_posteriors: torch.Tensor,
+        actions: torch.Tensor,
+        is_first: torch.Tensor,
+        init_post: torch.Tensor,
+    ) -> torch.Tensor:
+        """The recurrent model's ``LinearLnAct`` projection of the
+        ``is_first``-gated ``[z_{t-1}, a_t]``, batched over the whole (T, B)
+        sequence.  ``init_post`` is (B, S, D) or (B, S*D)."""
+        prev = prev_posteriors.reshape(*prev_posteriors.shape[:-2], -1)
+        prev = (1 - is_first) * prev + is_first * init_post.reshape(init_post.shape[0], -1)
+        actions = (1 - is_first) * actions
+        return self.recurrent_model.mlp(torch.cat([prev, actions], -1))
+
+    def gru_step_gated(
+        self, feat: torch.Tensor, recurrent_state: torch.Tensor, is_first: torch.Tensor, init_rec: torch.Tensor
+    ) -> torch.Tensor:
+        """One step of the sequential residue: the ``is_first``-gated state
+        reset and one GRU cell step on a projected input."""
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * init_rec
+        return self.recurrent_model.gru(recurrent_state, feat).float()
+
+    def seq_scan_eligible(self, feat_dim: int) -> bool:
+        """Does the dynamic recurrence run as one :func:`gru_sequence`?
+
+        JAX's rule and numbers (``seq_gru.py:fits_vmem``), so that both
+        packages take the same route at every size: ``fused_seq``, H and X
+        multiples of 128, and the (H + X, 3H) weight within 10 MB in the
+        compute dtype.  On Hopper the 10 MB is what the kernel's cooperative
+        grid keeps in shared memory, one column slice per block: about 79 KB
+        on each of 132 SMs."""
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        hidden = self.recurrent_state_size
+        return (
+            self.fused_seq
+            and hidden % 128 == 0
+            and feat_dim % 128 == 0
+            and (hidden + feat_dim) * 3 * hidden * itemsize <= 10 * 2**20
+        )
+
+    def gru_sequence_gated(self, feats: torch.Tensor, is_first: torch.Tensor, init_rec: torch.Tensor) -> torch.Tensor:
+        """The whole decoupled recurrence, (T, B, X) projected inputs ->
+        (T, B, H) states, in one launch of the sequence kernel
+        (``ops/seq_gru.py``): the same as looping :meth:`gru_step_gated`
+        over ``feats`` from a zero state, with the one-pass LayerNorm."""
+        cell = self.recurrent_model.gru
+        w = cell.weight if self.dtype == torch.float32 else cell.weight.to(self.dtype)
+        h0 = torch.zeros(feats.shape[1], self.recurrent_state_size, device=feats.device)
+        return self.seq_impl(h0, feats, w, cell.norm.weight, cell.norm.bias, is_first, init_rec, eps=cell.norm.eps)
 
     def imagination(
         self,
@@ -818,6 +878,7 @@ def _player_modules(runtime, actions_dim: Sequence[int], is_continuous: bool, cf
         learnable_initial_recurrent_state=bool(wm_cfg.learnable_initial_recurrent_state),
         decoupled=bool(wm_cfg.decoupled_rssm),
         fused_gru=bool(wm_cfg.recurrent_model.get("fused", False)),
+        fused_seq=bool(wm_cfg.recurrent_model.get("fused_seq", False)),
         dtype=dtype,
         device=device,
     )

@@ -3,7 +3,10 @@
 
 :func:`make_train_fn` builds the gradient step of ``make_train_fn``
 (``dreamer_v3.py:171-626``): the world-model loss over a dynamic scan of
-the RSSM, one optimizer step of the world model; imagination from the
+the RSSM (with ``decoupled_rssm``: the posteriors from the observations
+alone, then the recurrent states in one :func:`~sheeprl_tpu_torch.ops.seq_gru.gru_sequence`
+where ``RSSM.seq_scan_eligible`` allows, else a loop of gated GRU steps),
+one optimizer step of the world model; imagination from the
 detached posteriors through the *updated* world model, the actor loss
 against Moments-normalised lambda returns, one actor step; the critic loss
 against the lambda returns and the target critic, one critic step.
@@ -95,8 +98,7 @@ def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_co
         continue_scale_factor=float(wm_cfg.continue_scale_factor),
     )
     moments_cfg = cfg.algo.actor.moments
-    if bool(wm_cfg.decoupled_rssm):
-        raise NotImplementedError("the decoupled RSSM's training scan is not ported yet (DV3-S decoupled slice)")
+    decoupled = bool(wm_cfg.decoupled_rssm)
     compute_dtype = runtime.compute_dtype
     splits = [int(c) for c in np.cumsum(actions_dim)[:-1]]
     wm_params, actor_params, critic_params = _trainable(wm), _trainable(actor), _trainable(critic)
@@ -122,20 +124,39 @@ def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_co
         embedded_obs = wm.encoder(enc_obs)  # (T, B, E)
         init_rec, init_post = rssm.get_initial_states((B,))
         init_states = (init_rec, init_post.reshape(B, -1))
-        emb_proj = rssm.representation_embed_proj(embedded_obs)
-        posterior = torch.zeros(B, stochastic_size, discrete_size, device=device)
-        recurrent_state = torch.zeros(B, recurrent_state_size, device=device)
-        recs, posts, post_logits = [], [], []
-        for t in range(T):
-            recurrent_state, posterior, logits = rssm.dynamic_posterior(
-                posterior, recurrent_state, batch_actions[t], emb_proj[t], is_first[t], init_states,
-                noise=noise["dyn"][t],
-            )
-            recs.append(recurrent_state)
-            posts.append(posterior)
-            post_logits.append(logits)
-        recurrent_states = torch.stack(recs)
-        posteriors = torch.stack(posts)  # (T, B, S, D)
+        if decoupled:
+            # the posteriors depend on the observations alone: all of them up
+            # front, then the recurrent model on the previous posteriors, its
+            # input projection batched over the sequence and only the GRU
+            # sequential
+            posteriors_logits, posteriors = rssm._representation(embedded_obs, None, noise=noise["dyn"])
+            prev_posteriors = torch.cat([torch.zeros_like(posteriors[:1]), posteriors[:-1]], 0)
+            feats = rssm.recurrent_features_seq(prev_posteriors, batch_actions, is_first, init_states[1])
+            if rssm.seq_scan_eligible(int(feats.shape[-1])):
+                recurrent_states = rssm.gru_sequence_gated(feats, is_first, init_states[0])
+            else:
+                recurrent_state = torch.zeros(B, recurrent_state_size, device=device)
+                recs = []
+                for t in range(T):
+                    recurrent_state = rssm.gru_step_gated(feats[t], recurrent_state, is_first[t], init_states[0])
+                    recs.append(recurrent_state)
+                recurrent_states = torch.stack(recs)
+        else:
+            emb_proj = rssm.representation_embed_proj(embedded_obs)
+            posterior = torch.zeros(B, stochastic_size, discrete_size, device=device)
+            recurrent_state = torch.zeros(B, recurrent_state_size, device=device)
+            recs, posts, post_logits = [], [], []
+            for t in range(T):
+                recurrent_state, posterior, logits = rssm.dynamic_posterior(
+                    posterior, recurrent_state, batch_actions[t], emb_proj[t], is_first[t], init_states,
+                    noise=noise["dyn"][t],
+                )
+                recs.append(recurrent_state)
+                posts.append(posterior)
+                post_logits.append(logits)
+            recurrent_states = torch.stack(recs)
+            posteriors = torch.stack(posts)  # (T, B, S, D)
+            posteriors_logits = torch.stack(post_logits)
         priors_logits, _ = rssm._transition(recurrent_states, sample_state=False)
         latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], -1)
         reconstructed = wm.observation_model(latent_states)
@@ -144,7 +165,7 @@ def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_co
         pr = TwoHotEncodingDistribution(wm.reward_model(latent_states), dims=1)
         pc = Independent(BernoulliSafeMode(logits=wm.continue_model(latent_states)), 1)
         pl = priors_logits.reshape(T, B, stochastic_size, discrete_size)
-        psl = torch.stack(post_logits).reshape(T, B, stochastic_size, discrete_size)
+        psl = posteriors_logits.reshape(T, B, stochastic_size, discrete_size)
         rec_loss, kl_value, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
             po, batch_obs, pr, rewards, pl, psl, pc=pc, continue_targets=1 - terminated, **kl
         )

@@ -41,8 +41,11 @@
 // the levels near the root are shared by every draw and stay in L1/L2.
 //
 // What the design does about it.  One thread per draw, the E exclusions
-// (at most kMaxExcl, 63 on the Dreamer path) staged in shared memory with
-// their masses, the total summed once per block in a fixed order; the batch
+// (63 on the Dreamer path with one env, (L - 1) per env in general) staged
+// in shared memory with their masses, kExclChunk at a time, the total summed
+// once per block in index order; above kExclChunk the chunks are staged
+// again at every level and the corrections still summed in index order, so
+// a draw's arithmetic does not depend on the chunk size; the batch
 // max of the weights by an atomic max on the bits of the f32 weights (exact),
 // then a second launch divides.  The write is one launch to pick each leaf's
 // writer (and fold the max), one to write the leaves, then one launch per
@@ -58,7 +61,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxExcl = 1024;
+constexpr int kExclChunk = 1024;  // exclusions staged in shared memory at a time
 constexpr int kMaxDepth = 30;
 
 // max over f32 by integer atomics, exact for every pair of ordered floats:
@@ -72,30 +75,47 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   }
 }
 
+// Stage exclusions [base, base + m) in shared memory: their heap nodes and
+// their masses (0 where inactive).
+__device__ __forceinline__ void stage_exclusions(const float* __restrict__ tree, int p, const int* __restrict__ excl,
+                                                 const uint8_t* __restrict__ eact, int base, int m, int* s_enode,
+                                                 float* s_emass) {
+  for (int e = threadIdx.x; e < m; e += blockDim.x) {
+    const int en = excl[base + e] + p;
+    s_enode[e] = en;
+    s_emass[e] = eact[base + e] ? tree[en] : 0.0f;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) sample_kernel(
     const float* __restrict__ tree, int depth, const float* __restrict__ r01, int n, float beta,
     float count, const int* __restrict__ excl, const uint8_t* __restrict__ eact, int n_excl,
     int* __restrict__ leaf_out, float* __restrict__ w_out, float* wmax) {
-  __shared__ int s_enode[kMaxExcl];
-  __shared__ float s_emass[kMaxExcl];
+  __shared__ int s_enode[kExclChunk];
+  __shared__ float s_emass[kExclChunk];
   __shared__ float s_total;
   const int p = 1 << depth;
-  for (int e = threadIdx.x; e < n_excl; e += blockDim.x) {
-    const int en = excl[e] + p;
-    s_enode[e] = en;
-    s_emass[e] = eact[e] ? tree[en] : 0.0f;
+  const int n_chunks = (n_excl + kExclChunk - 1) / kExclChunk;
+  // every thread of the block reaches every barrier below: the loops' trip
+  // counts (chunks, levels) are the same for all, and a thread past n
+  // descends on u = 0 and writes nothing
+  float esum = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int base = c * kExclChunk;
+    const int m = min(kExclChunk, n_excl - base);
+    __syncthreads();
+    stage_exclusions(tree, p, excl, eact, base, m, s_enode, s_emass);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int e = 0; e < m; ++e) esum = __fadd_rn(esum, s_emass[e]);
+    }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int e = 0; e < n_excl; ++e) s = __fadd_rn(s, s_emass[e]);
-    s_total = __fsub_rn(tree[1], s);
-  }
+  if (threadIdx.x == 0) s_total = __fsub_rn(tree[1], esum);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const bool live = i < n;
   const float total = s_total;
-  float u = __fmul_rn(r01[i], total);
+  float u = live ? __fmul_rn(r01[i], total) : 0.0f;
   int node = 1;
   for (int lvl = 0; lvl < depth; ++lvl) {
     const int child = 2 * node;
@@ -103,8 +123,19 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(
     if (n_excl > 0) {
       const int shift = depth - 1 - lvl;
       float corr = 0.0f;
-      for (int e = 0; e < n_excl; ++e) {
-        if ((s_enode[e] >> shift) == child) corr = __fadd_rn(corr, s_emass[e]);
+      // the exclusions in index order, as the total: one chunk stays staged
+      // from above; more are streamed through shared memory at every level
+      for (int c = 0; c < n_chunks; ++c) {
+        const int base = c * kExclChunk;
+        const int m = min(kExclChunk, n_excl - base);
+        if (n_chunks > 1) {
+          __syncthreads();
+          stage_exclusions(tree, p, excl, eact, base, m, s_enode, s_emass);
+          __syncthreads();
+        }
+        for (int e = 0; e < m; ++e) {
+          if ((s_enode[e] >> shift) == child) corr = __fadd_rn(corr, s_emass[e]);
+        }
       }
       left = __fsub_rn(left, corr);
     }
@@ -112,6 +143,7 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(
     if (right) u = __fsub_rn(u, left);
     node = child + (right ? 1 : 0);
   }
+  if (!live) return;
   const float mass = tree[node];
   const float probs = __fdiv_rn(fmaxf(mass, FLT_MIN), fmaxf(total, FLT_MIN));
   const float w = powf(__fmul_rn(fmaxf(count, 1.0f), probs), -beta);
@@ -162,14 +194,12 @@ inline unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads -
 
 extern "C" {
 
-int sheeprl_sum_tree_max_excl() { return kMaxExcl; }
-
 // leaf/w are (n,) outputs; *wmax is a device f32 holding 0 on entry.  Returns
 // the CUDA error of the launches (0 on success).
 int sheeprl_sum_tree_sample(const float* tree, int depth, const float* r01, int n, float beta, float count,
                             const int* excl, const uint8_t* eact, int n_excl, int* leaf, float* w, float* wmax,
                             void* stream) {
-  if (depth < 1 || depth > kMaxDepth || n < 0 || n_excl < 0 || n_excl > kMaxExcl) {
+  if (depth < 1 || depth > kMaxDepth || n < 0 || n_excl < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;

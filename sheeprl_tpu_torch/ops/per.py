@@ -56,8 +56,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheeprl_sum_tree_sample.restype = i32
     lib.sheeprl_sum_tree_write.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr]
     lib.sheeprl_sum_tree_write.restype = i32
-    lib.sheeprl_sum_tree_max_excl.argtypes = []
-    lib.sheeprl_sum_tree_max_excl.restype = i32
 
 
 LIBRARY = CudaLibrary("sum_tree.cu", "libsheeprl_sum_tree", _bind)
@@ -171,8 +169,6 @@ def sum_tree_sample(
     excl, eact = _excl_args(tree, exclude_idx, exclude_active)
     lib = LIBRARY.load()
     n_excl = 0 if excl is None else int(excl.numel())
-    if n_excl > lib.sheeprl_sum_tree_max_excl():
-        raise ValueError(f"sum_tree_sample: {n_excl} exclusions, the kernel takes at most {lib.sheeprl_sum_tree_max_excl()}")
     n = int(r01.numel())
     leaf = torch.empty(n, dtype=torch.int32, device=tree.device)
     w = torch.empty(n, dtype=torch.float32, device=tree.device)

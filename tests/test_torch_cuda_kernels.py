@@ -229,3 +229,111 @@ def test_gather_transitions_bytes_exact(dtype, feat, next_obs):
     assert set(out) == set(ref)
     for k in ref:
         assert out[k].dtype == ref[k].dtype and torch.equal(out[k], ref[k]), k
+
+
+def _sequence_inputs(g, steps, batch, hidden, xdim):
+    is_first = torch.zeros(steps, batch, 1, device="cuda")
+    is_first[0, 0] = 1.0  # the other rows start from h0, so dh0 is not all zero
+    is_first[steps // 2, batch // 2] = 1.0
+    return [
+        torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
+        torch.randn(steps, batch, xdim, device="cuda", generator=g),
+        torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5,
+        1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+        0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+        is_first,
+        torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "steps,batch,hidden,xdim", [(64, 16, 512, 512), (5, 3, 128, 128), (9, 33, 256, 128), (3, 2, 200, 72), (4, 16, 128, 8192)]
+)
+def test_gru_sequence_matches_plain(steps, batch, hidden, xdim):
+    """The sequence kernel against its plain loop, resets mid-sequence: the
+    decoupled DV3-S cell's shape, the smallest eligible width at an odd
+    batch, a batch that leaves warps half used, H that does not split
+    evenly over the blocks, and rows too wide for shared memory to stage
+    all 16 at once; one launch each, and the same bits twice."""
+    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _sequence_inputs(torch.Generator(device="cuda").manual_seed(steps), steps, batch, hidden, xdim)
+    before = gru_sequence.launches
+    out = gru_sequence(*args)
+    again = gru_sequence(*args)
+    ref = gru_sequence_plain(*args)
+    torch.cuda.synchronize()
+    assert gru_sequence.launches == before + 2
+    assert out.shape == (steps, batch, hidden) and torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gru_sequence_backward_matches_plain_autograd():
+    """The op's gradients (kernel forward, efficient-BPTT backward) against
+    autograd through the plain loop at the DV3-S cell's shape: within 1e-3
+    of each gradient's largest magnitude."""
+    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _sequence_inputs(torch.Generator(device="cuda").manual_seed(1), 64, 16, 512, 512)
+    diff = (0, 1, 2, 3, 4, 6)
+    leaves = [a.requires_grad_(i in diff) for i, a in enumerate(args)]
+    wanted = [leaves[i] for i in diff]
+    up = torch.randn(64, 16, 512, device="cuda")
+    got = torch.autograd.grad(gru_sequence(*leaves), wanted, up)
+    ref = torch.autograd.grad(gru_sequence_plain(*leaves), wanted, up)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gru_sequence_raises_on_what_the_kernel_does_not_take():
+    """bf16 operands raise on the card (no fallback to the plain version),
+    and so does an H the grid cannot hold."""
+    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _sequence_inputs(torch.Generator(device="cuda").manual_seed(2), 4, 2, 128, 128)
+    before = gru_sequence.launches
+    with pytest.raises(TypeError, match="float32"):
+        gru_sequence(*args[:2], args[2].to(torch.bfloat16), *args[3:])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = _sequence_inputs(torch.Generator(device="cuda").manual_seed(3), 2, 2, 9 * sms, 8)
+    with pytest.raises(ValueError, match="units"):
+        gru_sequence(*big)
+    assert gru_sequence.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_excl", [1024, 1025, 2016])
+def test_sum_tree_sample_streams_exclusions(n_excl):
+    """Around the shared-memory chunk of 1024 exclusions and at 63 x 32
+    (DV3's prioritized starts on 32 envs), on integer-valued priorities
+    (exact sums): leaves identical to the plain version."""
+    from sheeprl_tpu_torch.ops.per import sum_tree_sample, sum_tree_sample_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(n_excl)
+    n_leaves = 1 << 16
+    tree = _tree(n_leaves, torch.randint(0, 9, (n_leaves,), generator=g, device="cuda").float())
+    excl = torch.randperm(n_leaves, generator=g, device="cuda")[:n_excl].to(torch.int32)
+    active = torch.rand(n_excl, generator=g, device="cuda") < 0.9
+    r01 = torch.rand(16384, generator=g, device="cuda")
+    leaf, w = sum_tree_sample(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl, exclude_active=active)
+    leaf_p, w_p = sum_tree_sample_plain(
+        tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl, exclude_active=active
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(leaf, leaf_p)
+    assert ((w - w_p).abs() <= 1e-6 * w_p.abs()).all()
+    assert not torch.isin(leaf, excl[active]).any()

@@ -62,15 +62,16 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def tiny_train_pair(fused=False, continuous=False, actions_dim=ACTIONS):
+def tiny_train_pair(fused=False, continuous=False, actions_dim=ACTIONS, extra=()):
     """The whole tiny DreamerV3 in both packages, on the same weights and
-    optimizer states, with each package's train step.  The reward and
-    critic output layers start at zero in both packages (as configured),
-    which leaves every value and the actor's loss at rounding noise; here
-    they get random weights so that the actor's objective is a real one."""
+    optimizer states, with each package's train step; ``extra`` overrides
+    come last.  The reward and critic output layers start at zero in both
+    packages (as configured), which leaves every value and the actor's loss
+    at rounding noise; here they get random weights so that the actor's
+    objective is a real one."""
     overrides = TINY + [
         f"algo.world_model.recurrent_model.fused={fused}", f"algo.horizon={H}",
-        f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}",
+        f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}", *extra,
     ]
     cfg_j = jax_compose(overrides=overrides)
     rt = JaxRuntime(devices=1, accelerator="cpu", precision="32-true")

@@ -243,3 +243,18 @@ def test_maybe_create_for_follows_the_config():
     assert per is not None and per.prioritized and per.per_decay == 0.5
     with pytest.raises(ValueError, match="prioritized"):
         maybe_create_for(cfg(device_cache=False, prioritized=True), rt, rb)
+
+
+def test_large_ring_stays_on_the_card_where_jax_keeps_it_on_the_host():
+    """``_admit`` keeps only the budget gate: a 1M-row DV3 rgb ring (12.3 GB,
+    over 2^31 bytes) is admitted with no budget set, where JAX's int32
+    gather gate sends it to the host; a budget below it still refuses.
+    ``_admit`` only estimates, so nothing large is allocated."""
+    row = {"rgb": np.zeros((1, 1, 64, 64, 3), np.uint8), "actions": np.zeros((1, 1, 9), np.float32)}
+    cache = DeviceReplayCache(1_000_000, 1, device="cpu")
+    assert cache.estimate_bytes(row) > 2**31
+    assert cache._admit(row) and cache.active and cache.buffers is None
+    jax_cache = JaxCache(1_000_000, 1)
+    assert not jax_cache._admit(row) and not jax_cache.active
+    small = DeviceReplayCache(1_000_000, 1, device="cpu", budget_bytes=2**31)
+    assert not small._admit(row) and not small.active
