@@ -24,6 +24,11 @@ random weights drawn from a seed):
   walker-walk shapes, 1,000,000 transitions of prioritized replay at full
   size) through ``train_dispatch`` with the sum-tree and transition-gather
   kernels, then again from the same state with ``per_kernel=lax``;
+- sharded SAC: the same dispatches on a mesh of 4 shards on the one card
+  (``fabric.devices=4``, one env a shard): the env-sharded cache and its
+  per-shard sum-trees, with the descent and scatter kernels, against a
+  single-device tree of the same cells and then against ``per_kernel=lax``,
+  and the sharded window draw (63 exclusions a shard, decay after);
 - decoupled DV3-S: ``train_steps`` of DreamerV3-S with the decoupled RSSM
   (MsPacman 100K shapes: 64x64 RGB, 9 actions) on the full 100,000-row
   ring, three gradient steps with the sequence GRU kernel (the dynamic
@@ -31,8 +36,9 @@ random weights drawn from a seed):
   window gather, then the same steps plain.
 
 Before the paths it checks the sum-tree kernels (sample, write, update) on a
-1,000,000-leaf tree, the transition gather and the sequence GRU (forward
-and backward), each against its plain version.
+1,000,000-leaf tree, the per-shard descent and scatter on a 250,000-leaf
+sub-tree, the transition gather and the sequence GRU (forward and
+backward), each against its plain version.
 
 It prints one line per phase.  The line before the last is a JSON object
 with each kernel's numbers; the last line is ``{"ok": true, "device":
@@ -256,8 +262,26 @@ SAC_TREE_RTOL = 1e-5
 TREE_LEAVES, TREE_DRAWS = 1000000, 16384
 W_RTOL = 1e-6  # IS weights: powf on the card against torch's pow
 
+# The env-sharded SAC phase: the same configuration on a mesh of 4 shards
+# (`fabric.devices=4`) on the one card.  As JAX's `main` does, each shard
+# runs `env.num_envs` envs and takes `per_rank_batch_size` rows a gradient
+# step: 16 envs of 62,500 rows (`buffer.size` over the envs), a sub-tree of
+# 4 envs' 250,000 leaves (depth 18) per shard, 1,024 rows a step and
+# 65,536 draws a dispatch.  No cut.
+SAC_WALKER_SHARDED = copy.deepcopy(SAC_WALKER)
+SAC_WALKER_SHARDED["fabric"]["devices"] = 4
+SHARD_LEAVES = 250000
+SHARDED_DRAWS = 4 * TREE_DRAWS
+SHARE_SIGMAS = 4  # a shard's share of the draws against its share of the mass, in binomial standard errors
+SHARE_DRAWS = 25
+
+
+_T0 = time.perf_counter()
+
 
 def phase(tag: str, **fields) -> None:
+    """One line per phase, with ``t_s``: seconds since the script started."""
+    fields["t_s"] = round(time.perf_counter() - _T0, 1)
     print(f"[{tag}] " + json.dumps(fields, default=str), flush=True)
 
 
@@ -1067,6 +1091,117 @@ def check_sum_tree_kernels(torch) -> dict:
     return rows
 
 
+def check_sharded_tree_kernels(torch) -> dict:
+    """Kernels #8 (descend) and #9 (scatter) against their plain versions on
+    one shard's sub-tree of the sharded SAC path (250,000 leaves, depth 18).
+    Descend: the dispatch's n = 65,536 draws placed in the shard's interval,
+    with 0, 1, 4 (the dispatch's: a head row for each of the shard's envs),
+    63, 252 (a window draw's: 63 for each env) and 2016 exclusions, on
+    integer-valued priorities (leaves and masses identical) and on random
+    f32 ones (flips counted; none without exclusions).  Scatter: lanes with
+    duplicates, inactive lanes and lanes of the other three shards, at 256,
+    1,024 (a flush of 64 rows of 16 envs) and 65,536 lanes (a TD update)
+    (heaps identical from slot 1, candidate max exact, the owner scratch
+    clean).  Returns timing rows at the path's shapes."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.ops import per
+
+    rng = np.random.default_rng(8)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    trees = {
+        "integer": tree_from_leaves(rng.integers(0, 9, SHARD_LEAVES).astype(np.float32), "cuda").tree,
+        "f32": tree_from_leaves((rng.random(SHARD_LEAVES) + 0.01).astype(np.float32), "cuda").tree,
+    }
+    depth = (trees["f32"].numel() // 2).bit_length() - 1
+    p = 1 << depth
+    n = SHARDED_DRAWS
+    r01 = torch.rand(n, generator=g, device="cuda")
+    one_less = torch.tensor(1.0 - 1e-7, device="cuda")
+    rows = {}
+    for n_excl in (0, 1, 4, 63, 252, 2016):
+        excl = None
+        if n_excl:
+            excl = torch.from_numpy(rng.choice(SHARD_LEAVES, n_excl, replace=False).astype(np.int32)).cuda()
+        checks, u_by = {}, {}
+        for label, tree in trees.items():
+            m_local = tree[1] - (tree[excl.long() + p].sum() if n_excl else 0.0)
+            u = torch.clamp(torch.minimum(r01, one_less) * m_local, torch.zeros((), device="cuda"), m_local * one_less)
+            u_by[label] = u
+            leaf, mass = per.sum_tree_descend(tree, u, depth=depth, exclude_idx=excl)
+            leaf_p, mass_p = per.sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=excl)
+            torch.cuda.synchronize()
+            same = leaf == leaf_p
+            flips = int((~same).sum())
+            if flips and (label == "integer" or not n_excl):
+                raise AssertionError(f"sum_tree_descend E={n_excl} {label}: {flips} draws differ from the plain version")
+            if not torch.equal(mass[same], mass_p[same]):
+                raise AssertionError(f"sum_tree_descend E={n_excl} {label}: masses differ where the leaves agree")
+            if excl is not None and bool(torch.isin(leaf, excl).any()):
+                raise AssertionError(f"sum_tree_descend E={n_excl}: an excluded leaf was drawn")
+            if int(leaf.max()) >= SHARD_LEAVES:
+                raise AssertionError("sum_tree_descend reached a padded leaf")
+            checks[label] = {"flips": flips}
+        tree, u = trees["f32"], u_by["f32"]
+        leaves_t = tree[p : p + SHARD_LEAVES]
+
+        def kernel():
+            return per.sum_tree_descend(tree, u, depth=depth, exclude_idx=excl)
+
+        def plain():
+            return per.sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=excl)
+
+        def library():  # the inverse-CDF descent, two calls, no exclusions
+            return torch.searchsorted(torch.cumsum(leaves_t, 0), u, right=True)
+
+        leaf = kernel()[0]
+        nbytes = descent_bytes(torch, leaf, depth, n_excl)
+        b_ms, b_by = bound(nbytes, n * depth * (3 + 2 * n_excl))
+        row = {
+            "draws": n, "leaves": SHARD_LEAVES, "depth": depth, "exclusions": n_excl, "checks": checks, "max_abs_err": 0.0,
+            "ms": time_ms(torch, kernel, iters=50), "plain_ms": time_ms(torch, plain, iters=10),
+            "library_ms": time_ms(torch, library, iters=50), "device_ms": device_ms(torch, kernel),
+            "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        phase("sum_tree_descend", **row)
+        rows[f"descend_e{n_excl}"] = row
+
+    base = trees["f32"]
+    owner = per.owner_scratch(depth, "cuda")
+    for lanes in (256, 1024, SHARDED_DRAWS):
+        leaf_idx = torch.randint(0, SHARD_LEAVES, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+        leaf_idx[lanes // 2 : lanes // 2 + lanes // 8] = leaf_idx[: lanes // 8]  # duplicates, of any shard ...
+        vals = torch.randint(1, 40, (lanes,), generator=g, device="cuda").float() * 0.25
+        vals[lanes // 2 : lanes // 2 + lanes // 16] = vals[: lanes // 16]  # ... half of them with equal values
+        active = torch.rand(lanes, generator=g, device="cuda") < 0.7
+        shard_ids = torch.randint(0, 4, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+        for rank in range(4):
+            a, b = base.clone(), base.clone()
+            _, cand = per.sum_tree_scatter(a, leaf_idx, vals, active, shard_ids, rank, depth=depth, owner=owner)
+            _, cand_p = per.sum_tree_scatter_plain(b, leaf_idx, vals, active, shard_ids, rank, depth=depth)
+            torch.cuda.synchronize()
+            if not torch.equal(a[1:], b[1:]) or float(cand) != float(cand_p):
+                raise AssertionError(f"sum_tree_scatter {lanes} lanes, rank {rank}: tree or candidate max differ from the plain version")
+            if not bool((owner == -1).all()):
+                raise AssertionError("sum_tree_scatter: the owner scratch was left dirty")
+        scratch = base.clone()
+        own = active & (shard_ids == 1)
+        nbytes = write_bytes(torch, leaf_idx, own, depth, True) + 4 * lanes
+        b_ms, b_by = bound(nbytes)
+        row = {
+            "lanes": lanes, "owned_active": int(own.sum()), "launches_per_call": depth + 2, "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: per.sum_tree_scatter(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth, owner=owner), iters=50),
+            "plain_ms": time_ms(torch, lambda: per.sum_tree_scatter_plain(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth), iters=10),
+            "library_ms": None,
+            "device_ms": device_ms(torch, lambda: per.sum_tree_scatter(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth, owner=owner)),
+            "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        phase("sum_tree_scatter", **row)
+        rows[f"scatter_{lanes}"] = row
+    del trees, base, scratch
+    return rows
+
+
 def check_transitions_gather(torch) -> dict:
     """The transition gather against its plain version, bytes exact: uint8
     and f32 rows of 1, 4, 24 and 96 bytes and a key with no feature axis,
@@ -1130,6 +1265,26 @@ def time_transitions_gather(torch, cache, leaves) -> dict:
 
 
 # ------------------------------------------------------------------ SAC
+_DISPATCH_PARTS = ("add", "sample_transitions_per", "update_priorities")
+
+
+def _time_parts(cache, sink: dict) -> None:
+    """Wrap the cache's calls that a dispatch makes around its train
+    function, adding each call's host time (ms, no synchronisation added)
+    to ``sink``; ``del cache.<name>`` restores each."""
+    for name in _DISPATCH_PARTS:
+        inner = getattr(cache, name)
+
+        def timed(*a, _inner=inner, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*a, **kw)
+            finally:
+                sink[_name] = sink.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        setattr(cache, name, timed)
+
+
 class _Space:
     def __init__(self, shape, low=None, high=None):
         self.shape = tuple(shape)
@@ -1169,7 +1324,7 @@ def fill_walker_replay(cfg, runtime, capacity: int, *, seed: int = 5, chunk: int
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.data.device_buffer import maybe_create_for_transitions
 
-    n_envs = int(cfg.env.num_envs)
+    n_envs = int(cfg.env.num_envs) * runtime.world_size  # JAX's total_envs
     rng = np.random.default_rng(seed)
     rb = ReplayBuffer(capacity, n_envs, obs_keys=("observations",))
     t0 = time.perf_counter()
@@ -1256,6 +1411,8 @@ def run_sac(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, pro
             return out, idx
 
         cache.sample_transitions_per = recording
+        parts = {}
+        _time_parts(cache, parts)
         if device != "cpu":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1273,7 +1430,8 @@ def run_sac(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, pro
                 ms.append((time.perf_counter() - t0) * 1e3)
                 metrics.append({k: float(v) for k, v in m.items()})
         finally:
-            del cache.sample_transitions_per
+            for name in _DISPATCH_PARTS:
+                delattr(cache, name)
         launches = {c.__name__: c.launches for c in counters}
         for i, mm in enumerate(metrics):
             bad = [k for k, v in mm.items() if not np.isfinite(v)]
@@ -1281,6 +1439,7 @@ def run_sac(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, pro
                 raise AssertionError(f"SAC dispatch {i}: non-finite {bad}")
         return {
             "metrics": metrics, "ms": ms, "launches": launches, "leaves": leaves,
+            "host_ms_per_dispatch": {k: v / n for k, v in parts.items()},
             "params": {k: v.detach().clone() for k, v in agent.state_dict().items()},
             "tree": cache.tree.tree.clone(), "max_priority": float(cache.tree.max_priority),
             "max_memory_allocated": torch.cuda.max_memory_allocated() if device != "cpu" else None,
@@ -1321,6 +1480,8 @@ def run_sac(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, pro
         "max_abs_param_diff": worst_param, "param_atol": SAC_PARAM_ATOL,
         "max_rel_tree_diff": tree_err, "max_priority": fast["max_priority"],
         "leaves_identical": True, "dispatch_ms_kernels": fast["ms"], "dispatch_ms_lax": plain["ms"],
+        "host_ms_per_dispatch_kernels": fast["host_ms_per_dispatch"],
+        "host_ms_per_dispatch_lax": plain["host_ms_per_dispatch"],
         "launches": fast["launches"], "max_memory_allocated": fast["max_memory_allocated"],
         "max_memory_allocated_lax": plain["max_memory_allocated"],
     }
@@ -1338,6 +1499,289 @@ def run_sac(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, pro
                 train_dispatch(fast["state"], rb, cache, cfg, [True] * g, fill["written"], beta_fn, None, gen)
                 torch.cuda.synchronize()
             res["profile"] = _device_time(torch, prof, 1, float(np.mean(fast["ms"])))
+    return res
+
+
+def run_sac_sharded(cfg, device, *, dispatches: int = SAC_DISPATCHES, capacity=None, profile: bool = True,
+                    single_ms=None) -> dict:
+    """The env-sharded SAC phase: ``cfg.fabric.devices`` shards on one device.
+
+    1. Fill: the walker replay of :func:`fill_walker_replay` through
+       ``maybe_create_for_transitions`` on a ``MeshRuntime(devices=4)``,
+       which builds the sharded cache, with JAX's ``main``'s sizes:
+       ``env.num_envs`` envs a shard and ``buffer.size`` over all the envs;
+       each shard's rings must equal its envs' columns of the host buffer
+       byte for byte.
+    2. State against a single-device tree: the same integer priorities on
+       the sharded tree and on a ``PriorityTree`` of all the cells; totals
+       and ``state_dict()["leaves"]`` equal; over 25 draws of G x B each
+       shard's share of the draws within 4 binomial standard errors of its
+       share of the mass.
+    3. The uniform sharded transition and window draws with the kernels
+       against lax: bytes equal, one gather launch a shard.
+    4. ``dispatches`` calls of ``train_dispatch`` with the kernels, then the
+       same calls from the same state with ``per_kernel=lax``: identical
+       leaves, losses, parameters and trees within the SAC phase's
+       tolerances.  The launch counters are set to 0 just before the kernel
+       run and read just after it.
+    5. The sharded window draw: ``sample_per(1, 16, 64)`` (63 exclusions an
+       env, decay after the draw) with the kernels against lax: identical
+       starts and decayed trees, windows equal to the rows they start at."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac.sac import make_train_state, train_dispatch
+    from sheeprl_tpu_torch.data.device_buffer import ShardedDeviceReplayCache
+    from sheeprl_tpu_torch.ops import per
+    from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_windows, gather_windows_plain
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.replay import PriorityTree, per_beta_schedule
+
+    n_shards = int(cfg.fabric.devices)
+    n_envs = int(cfg.env.num_envs) * n_shards  # JAX's total_envs
+    capacity = capacity or int(cfg.buffer.size) // n_envs
+    runtime = MeshRuntime(device=device, precision=cfg.fabric.precision, seed=int(cfg.seed), devices=n_shards).launch()
+    rb, cache, written, fill = fill_walker_replay(cfg, runtime, capacity)
+    if type(cache) is not ShardedDeviceReplayCache:
+        raise AssertionError(f"a {n_shards}-shard mesh built {type(cache).__name__}")
+    n_local = n_envs // n_shards
+    for r in range(n_shards):
+        for k, ring in cache.shard_buffers(r).items():
+            host = np.ascontiguousarray(rb.buffer[k][:, r * n_local : (r + 1) * n_local])
+            if not torch.equal(ring, torch.from_numpy(host).to(ring.device)):
+                raise AssertionError(f"shard {r} ring '{k}' differs from its envs' columns of the host buffer")
+    fill.update(shards=n_shards, envs_per_shard=n_local, shard_leaves=cache.tree.n_leaves_local)
+    phase("sac_sharded_fill", **fill)
+    sync = (lambda: torch.cuda.synchronize()) if runtime.device.type == "cuda" else (lambda: None)
+
+    # 2. the sharded tree against a single-device tree of the same cells
+    tree = cache.tree
+    n_cells = tree.n_leaves
+    pri = np.random.default_rng(9).integers(1, 9, n_cells).astype(np.float32)
+    single = PriorityTree(n_cells, device=runtime.device, kernel="pallas")
+    single.set_priorities(torch.arange(n_cells, device=runtime.device), torch.from_numpy(pri).to(runtime.device))
+    tree.set_priorities(torch.arange(n_cells, device=runtime.device), torch.from_numpy(pri).to(runtime.device))
+    sync()
+    if tree.total != single.total or not np.array_equal(tree.state_dict()["leaves"], single.state_dict()["leaves"]):
+        raise AssertionError("the sharded tree's total or leaves differ from the single-device tree's")
+    del single
+    g, batch = int(cfg.algo.dispatch_batch), int(cfg.algo.per_rank_batch_size) * n_shards  # train_dispatch's batch
+    gen = torch.Generator(device=runtime.device).manual_seed(11)
+    counts = torch.zeros(n_shards, dtype=torch.int64, device=runtime.device)
+    for _ in range(SHARE_DRAWS):
+        _, lv = cache.sample_transitions_per(g, batch, gen, 0.4)
+        counts += torch.bincount((lv.reshape(-1).long() % n_envs) // n_local, minlength=n_shards)
+    draws_total = SHARE_DRAWS * g * batch
+    mass = tree.trees[:, 1].double().cpu().numpy()
+    share_mass = mass / mass.sum()
+    share = counts.cpu().numpy() / draws_total
+    sigmas = np.abs(share - share_mass) / np.sqrt(share_mass * (1 - share_mass) / draws_total)
+    if sigmas.max() > SHARE_SIGMAS:
+        raise AssertionError(f"shard draw shares {share} against mass shares {share_mass}: {sigmas.max()} standard errors")
+    state_check = {"total": tree.total, "leaves_equal": True, "draws": draws_total, "share_of_draws": share.tolist(),
+                   "share_of_mass": share_mass.tolist(), "max_std_errors": float(sigmas.max())}
+
+    # 3. the stratified uniform draw through the transition gather, kernels against lax
+    flat_local = g * batch // n_shards
+    envs = torch.randint(0, n_local, (n_shards, flat_local), generator=gen, device=runtime.device, dtype=torch.int32)
+    u = torch.rand((n_shards, flat_local), generator=gen, device=runtime.device)
+    uniform = {}
+    for kernel in ("pallas", "lax"):
+        cache.kernel = kernel
+        gather_transitions.launches = 0
+        uniform[kernel] = cache.sample_transitions(g, batch, envs=envs, u=u)
+        uniform[kernel + "_launches"] = gather_transitions.launches
+    sync()
+    if any(not torch.equal(uniform["pallas"][k], uniform["lax"][k]) for k in uniform["lax"]):
+        raise AssertionError("the sharded uniform transition draw differs between the kernels and lax")
+    if runtime.device.type == "cuda" and uniform["pallas_launches"] != n_shards:
+        raise AssertionError(f"the sharded uniform draw launched the gather {uniform['pallas_launches']} times")
+    # ... and the stratified uniform window draw through the window gather
+    seq_len, starts_n = 64, 16
+    envs = torch.randint(0, n_local, (n_shards, starts_n // n_shards), generator=gen, device=runtime.device, dtype=torch.int32)
+    u = torch.rand((n_shards, starts_n // n_shards), generator=gen, device=runtime.device)
+    for kernel in ("pallas", "lax"):
+        cache.kernel = kernel
+        gather_windows.launches = 0
+        uniform["w_" + kernel] = cache.sample(1, starts_n, seq_len, envs=envs, u=u)[0]
+        uniform["w_" + kernel + "_launches"] = gather_windows.launches
+    sync()
+    if any(not torch.equal(uniform["w_pallas"][k], uniform["w_lax"][k]) for k in uniform["w_lax"]):
+        raise AssertionError("the sharded uniform window draw differs between the kernels and lax")
+    if runtime.device.type == "cuda" and uniform["w_pallas_launches"] != n_shards:
+        raise AssertionError(f"the sharded uniform window draw launched the gather {uniform['w_pallas_launches']} times")
+    state_check["uniform_bytes_equal"] = True
+    state_check["uniform_gather_launches"] = uniform["pallas_launches"]
+    state_check["uniform_window_gather_launches"] = uniform["w_pallas_launches"]
+    del uniform
+
+    # 4. dispatches, kernels then lax, from the same state
+    ones = np.ones(WALKER_ACTIONS, np.float32)
+    agent, target_entropy = build_agent(
+        runtime, cfg, {"state": _Space((WALKER_OBS,))}, _Space((WALKER_ACTIONS,), -ones, ones)
+    )
+    initial = copy.deepcopy(agent.state_dict())
+    rings0 = {k: v.clone() for k, v in cache.buffers.items()}
+    trees0, max0 = tree.trees.clone(), tree.max_priority.clone()
+    pos0, filled0 = cache._pos.copy(), cache._filled.copy()
+    ema_every = int(cfg.algo.critic.target_network_frequency) // n_envs + 1
+    beta_fn = per_beta_schedule(cfg.buffer.per_beta, cfg.buffer.per_beta_end, int(cfg.algo.total_steps))
+    windows = [walker_transitions(np.random.default_rng(200 + d), g, n_envs, written + d * g) for d in range(dispatches)]
+    counters = (per.sum_tree_descend, per.sum_tree_scatter, per.sum_tree_sample, per.sum_tree_write,
+                per.sum_tree_update, gather_transitions)
+
+    def restore(kernel: str) -> None:
+        cache.kernel = kernel
+        for k, ring in cache.buffers.items():
+            ring.copy_(rings0[k])
+        tree.trees.copy_(trees0)
+        tree.max_priority = max0.clone()
+        cache._pos[:], cache._filled[:] = pos0, filled0
+
+    def run(kernels: bool, n: int) -> dict:
+        agent.load_state_dict(initial)
+        restore("pallas" if kernels else "lax")
+        state = make_train_state(runtime, agent, cfg, target_entropy, prioritized=True)
+        gen = torch.Generator(device=runtime.device).manual_seed(int(cfg.seed))
+        leaves, metrics, ms = [], [], []
+        inner = cache.sample_transitions_per
+
+        def recording(*a, **kw):
+            out, idx = inner(*a, **kw)
+            leaves.append(idx.clone())
+            return out, idx
+
+        cache.sample_transitions_per = recording
+        parts = {}
+        _time_parts(cache, parts)
+        sync()
+        if runtime.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        try:
+            for d in range(n):
+                pending = [{k: v[i : i + 1] for k, v in windows[d].items()} for i in range(g)]
+                iters = range(written + d * g, written + (d + 1) * g)
+                policy_step = (written + (d + 1) * g) * n_envs
+                t0 = time.perf_counter()
+                m = train_dispatch(state, rb, cache, cfg, [it % ema_every == 0 for it in iters], policy_step, beta_fn, pending, gen)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            for name in _DISPATCH_PARTS:
+                delattr(cache, name)
+        launches = {c.__name__: c.launches for c in counters}
+        for i, mm in enumerate(metrics):
+            bad = [k for k, v in mm.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"sharded SAC dispatch {i}: non-finite {bad}")
+        return {
+            "metrics": metrics, "ms": ms, "launches": launches, "leaves": leaves,
+            "host_ms_per_dispatch": {k: v / n for k, v in parts.items()},
+            "params": {k: v.detach().clone() for k, v in agent.state_dict().items()},
+            "trees": tree.trees.clone(), "max_priority": float(tree.max_priority),
+            "max_memory_allocated": torch.cuda.max_memory_allocated() if runtime.device.type == "cuda" else None,
+            "state": state,
+        }
+
+    run(False, 1)  # warm both paths' per-shape state
+    run(True, 1)
+    fast = run(True, dispatches)
+    plain = run(False, dispatches)
+    if runtime.device.type == "cuda":
+        # a dispatch: one descent per shard, and one scatter per shard for the
+        # flush's seeding and one for the TD update; no single-tree kernel
+        want = {"sum_tree_descend": n_shards * dispatches, "sum_tree_scatter": 2 * n_shards * dispatches,
+                "sum_tree_sample": 0, "sum_tree_write": 0, "sum_tree_update": 0, "gather_transitions": 0}
+        if fast["launches"] != want:
+            raise AssertionError(f"sharded SAC kernel launches {fast['launches']}, want {want}")
+    if any(plain["launches"].values()):
+        raise AssertionError(f"per_kernel=lax launched kernels: {plain['launches']}")
+    for d, (a, b) in enumerate(zip(fast["leaves"], plain["leaves"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sharded SAC dispatch {d}: {int((a != b).sum())} sampled leaves differ between the kernels and lax")
+    worst_loss = {}
+    for d, (a, b) in enumerate(zip(fast["metrics"], plain["metrics"])):
+        for k in a:
+            diff = abs(a[k] - b[k])
+            if diff > SAC_LOSS_RTOL * abs(b[k]) + 1e-7:
+                raise AssertionError(f"sharded SAC dispatch {d} {k}: kernels {a[k]} vs lax {b[k]} (rtol {SAC_LOSS_RTOL})")
+            worst_loss[k] = max(worst_loss.get(k, 0.0), diff / max(abs(b[k]), 1e-30))
+    worst_param = max(float((fast["params"][k] - plain["params"][k]).abs().max()) for k in fast["params"])
+    if worst_param > SAC_PARAM_ATOL:
+        raise AssertionError(f"sharded SAC parameters differ by {worst_param} > {SAC_PARAM_ATOL}")
+    tree_err = float(((fast["trees"] - plain["trees"]).abs() / plain["trees"].abs().clamp_min(1e-30))[:, 1:].max())
+    if tree_err > SAC_TREE_RTOL or abs(fast["max_priority"] - plain["max_priority"]) > SAC_TREE_RTOL * plain["max_priority"]:
+        raise AssertionError(f"sharded SAC trees differ by {tree_err} (max priority {fast['max_priority']} vs {plain['max_priority']})")
+
+    # 5. the sharded window draw: 63 exclusions an env, decayed after
+    starts = {}
+    for kernel in ("pallas", "lax"):
+        restore(kernel)
+        inner = cache._sharded_per
+
+        def recording(*a, **kw):
+            out, idx = inner(*a, **kw)
+            starts[kernel] = idx.clone()
+            return out, idx
+
+        cache._sharded_per = recording
+        try:
+            per.sum_tree_descend.launches = per.sum_tree_scatter.launches = 0
+            got = cache.sample_per(1, 16, seq_len, torch.Generator(device=runtime.device).manual_seed(12), beta=0.0)[0]
+            starts[kernel + "_launches"] = {"sum_tree_descend": per.sum_tree_descend.launches,
+                                            "sum_tree_scatter": per.sum_tree_scatter.launches}
+        finally:
+            del cache._sharded_per
+        starts[kernel + "_trees"] = tree.trees.clone()
+        lv = starts[kernel].reshape(-1).long()
+        ref = gather_windows_plain(cache.buffers, (lv // n_envs).to(torch.int32), (lv % n_envs).to(torch.int32),
+                                   seq_len=seq_len, batch_size=16)
+        if any(not torch.equal(got[k], ref[k][0]) for k in ref):
+            raise AssertionError(f"sharded window draw ({kernel}): a window is not the ring's rows from its start")
+        head = torch.from_numpy(cache._pos).to(runtime.device)[lv % n_envs]
+        behind = (head - lv // n_envs) % capacity  # the L - 1 rows before the head cannot start a window
+        if bool(((behind >= 1) & (behind < seq_len)).any()):
+            raise AssertionError(f"sharded window draw ({kernel}): a start within L - 1 rows of its env's head")
+    sync()
+    if not torch.equal(starts["pallas"], starts["lax"]) or not torch.equal(starts["pallas_trees"][:, 1:], starts["lax_trees"][:, 1:]):
+        raise AssertionError("sharded window draw: starts or decayed trees differ between the kernels and lax")
+    if runtime.device.type == "cuda" and starts["pallas_launches"] != {"sum_tree_descend": n_shards, "sum_tree_scatter": n_shards}:
+        raise AssertionError(f"sharded window draw launches {starts['pallas_launches']}")
+    window_check = {"starts": 16, "seq_len": seq_len, "exclusions_per_shard": (seq_len - 1) * n_local,
+                    "decay": cache.per_decay, "starts_identical": True, "trees_identical": True,
+                    "launches": starts["pallas_launches"]}
+
+    res = {
+        "shards": n_shards, "envs": n_envs, "dispatches": dispatches, "gradient_steps_per_dispatch": g, "batch": batch,
+        "per_rank_batch_size": int(cfg.algo.per_rank_batch_size),
+        "state_check": state_check, "window_draw": window_check,
+        "losses_kernels": fast["metrics"], "losses_lax": plain["metrics"], "max_rel_diff": worst_loss,
+        "max_abs_param_diff": worst_param, "param_atol": SAC_PARAM_ATOL,
+        "max_rel_tree_diff": tree_err, "max_priority": fast["max_priority"],
+        "leaves_identical": True, "dispatch_ms_kernels": fast["ms"], "dispatch_ms_lax": plain["ms"],
+        "dispatch_ms_single_device": single_ms,
+        "host_ms_per_dispatch_kernels": fast["host_ms_per_dispatch"],
+        "host_ms_per_dispatch_lax": plain["host_ms_per_dispatch"],
+        "launches": fast["launches"], "max_memory_allocated": fast["max_memory_allocated"],
+        "max_memory_allocated_lax": plain["max_memory_allocated"],
+    }
+    if runtime.device.type == "cuda" and profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        # device time of one more dispatch; the idle share is taken against
+        # the kernel run's dispatch time without the profiler
+        cache.kernel = "pallas"
+        gen = torch.Generator(device=runtime.device).manual_seed(0)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_dispatch(fast["state"], rb, cache, cfg, [True] * g, fill["written"], beta_fn, None, gen)
+            torch.cuda.synchronize()
+        res["profile"] = _device_time(torch, prof, 1, float(np.mean(fast["ms"])))
+    del cache
     return res
 
 
@@ -1470,7 +1914,7 @@ def _kernel_group(name: str) -> str:
         return "gather_windows (hand-written)"
     if "gather_transitions" in n:
         return "gather_transitions (hand-written)"
-    if any(k in n for k in ("sample_kernel", "normalize_kernel", "claim_kernel", "write_leaves", "rebuild_level")):
+    if any(k in n for k in ("sample_kernel", "descend_kernel", "normalize_kernel", "claim_kernel", "write_leaves", "rebuild_level")):
         return "sum_tree (hand-written)"
     if "memcpy" in n or "memset" in n:
         return "copies"
@@ -1605,6 +2049,7 @@ def main() -> int:
     gru_rows = check_gru_kernel(torch, gru_cell, gru_cell_plain)
     check_gru_backward(torch, gru_cell, gru_cell_plain)
     tree_rows = check_sum_tree_kernels(torch)
+    shard_rows = check_sharded_tree_kernels(torch)
     check_transitions_gather(torch)
     seq_row = check_seq_gru_kernel(torch)
 
@@ -1647,6 +2092,16 @@ def main() -> int:
     phase("sac_training", **sac)
     if sac_profile is not None:
         phase("sac_profile", **sac_profile)
+    torch.cuda.empty_cache()
+
+    # 7b. SAC on a mesh of 4 shards: the env-sharded cache and its per-shard
+    # sum-trees (kernels #8 and #9), kernels then lax
+    sharded = run_sac_sharded(dotdict(SAC_WALKER_SHARDED), "cuda", single_ms=sac["dispatch_ms_kernels"])
+    sharded_profile = sharded.pop("profile", None)
+    phase("sac_sharded_losses", kernels=sharded.pop("losses_kernels"), lax=sharded.pop("losses_lax"))
+    phase("sac_sharded", **sharded)
+    if sharded_profile is not None:
+        phase("sac_sharded_profile", **sharded_profile)
     torch.cuda.empty_cache()
 
     # 8. decoupled DV3-S training on the full MsPacman ring: gru_sequence,
@@ -1697,10 +2152,11 @@ def main() -> int:
             "source": "sheeprl_tpu_torch/csrc/gather_windows.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gather.py:84",
             "launches": train["launches"]["gather_windows"] + per_train["launches"]["gather_windows"]
-            + dec["launches"]["gather_windows"],
+            + dec["launches"]["gather_windows"] + sharded["state_check"]["uniform_window_gather_launches"],
             "launches_by_path": {"training": train["launches"]["gather_windows"],
                                  "training_per": per_train["launches"]["gather_windows"],
-                                 "training_decoupled": dec["launches"]["gather_windows"]},
+                                 "training_decoupled": dec["launches"]["gather_windows"],
+                                 "sac_sharded": sharded["state_check"]["uniform_window_gather_launches"]},
             "max_abs_err": gather_row["max_abs_err"],
             "ms": gather_row["ms"],
             "plain_ms": gather_row["plain_ms"],
@@ -1713,7 +2169,9 @@ def main() -> int:
             "shape": f"{gather_row['rows']} rows x {gather_row['row_bytes']} B",
         },
         _kernel_entry("gather_transitions", "sheeprl_tpu_torch/csrc/gather_transitions.cu",
-                      "sheeprl_tpu/ops/pallas_gather.py:127", {"sac": sac["launches"]["gather_transitions"]},
+                      "sheeprl_tpu/ops/pallas_gather.py:127",
+                      {"sac": sac["launches"]["gather_transitions"],
+                       "sac_sharded": sharded["state_check"]["uniform_gather_launches"]},
                       transitions_row, f"{transitions_row['rows']} rows x {transitions_row['row_bytes']} B"),
         _kernel_entry("sum_tree_sample", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:171",
                       {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"]},
@@ -1732,6 +2190,20 @@ def main() -> int:
         _kernel_entry("gru_sequence", "sheeprl_tpu_torch/csrc/seq_gru.cu", "sheeprl_tpu/ops/seq_gru.py:126",
                       {"training_decoupled": dec["launches"]["gru_sequence"]}, seq_row, seq_row["shape"],
                       fwd_bwd_ms=seq_row["fwd_bwd_ms"], plain_fwd_bwd_ms=seq_row["plain_fwd_bwd_ms"]),
+        _kernel_entry("sum_tree_descend", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:224",
+                      {"sac_sharded": sharded["launches"]["sum_tree_descend"]}, shard_rows["descend_e4"],
+                      f"{SHARDED_DRAWS} draws, one shard's {SHARD_LEAVES}-leaf sub-tree, 4 exclusions",
+                      ms_e0=shard_rows["descend_e0"]["ms"], device_ms_e0=shard_rows["descend_e0"]["device_ms"],
+                      bound_ms_e0=shard_rows["descend_e0"]["bound_ms"],
+                      ms_e252=shard_rows["descend_e252"]["ms"], device_ms_e252=shard_rows["descend_e252"]["device_ms"],
+                      bound_ms_e252=shard_rows["descend_e252"]["bound_ms"],
+                      ms_e2016=shard_rows["descend_e2016"]["ms"], device_ms_e2016=shard_rows["descend_e2016"]["device_ms"],
+                      flips_f32_e252=shard_rows["descend_e252"]["checks"]["f32"]["flips"]),
+        _kernel_entry("sum_tree_scatter", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:238",
+                      {"sac_sharded": sharded["launches"]["sum_tree_scatter"]}, shard_rows[f"scatter_{SHARDED_DRAWS}"],
+                      f"{SHARDED_DRAWS} lanes over 4 shards (one TD update's), one shard's {SHARD_LEAVES}-leaf sub-tree",
+                      ms_1024=shard_rows["scatter_1024"]["ms"], device_ms_1024=shard_rows["scatter_1024"]["device_ms"],
+                      bound_ms_1024=shard_rows["scatter_1024"]["bound_ms"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

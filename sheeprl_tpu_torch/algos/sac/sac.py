@@ -34,7 +34,7 @@ rate limiter (``buffer.rate_limiter``), the training-health sentinel
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -129,6 +129,7 @@ class SACTrainState:
     opt_states: Dict[str, AdamState]
     train_fn: Callable
     prioritized: bool
+    runtime: Any  # the mesh: its world size scales the batch; host-fed batches are split over it
     gradient_steps: int = 0  # cumulative_per_rank_gradient_steps
 
 
@@ -141,7 +142,7 @@ def make_train_state(runtime, agent: SACAgent, cfg, target_entropy: float, prior
         "alpha": txs["alpha"].init({"log_alpha": agent.log_alpha}),
     }
     train_fn = make_train_fn(runtime, agent, txs, cfg, target_entropy, prioritized)
-    return SACTrainState(agent, txs, opt_states, train_fn, bool(prioritized))
+    return SACTrainState(agent, txs, opt_states, train_fn, bool(prioritized), runtime)
 
 
 def train_dispatch(
@@ -166,9 +167,18 @@ def train_dispatch(
     prioritized, else ``sample_transitions``), else from ``rb`` on the host
     (unit IS weights when prioritized).  ``draws`` optionally gives the
     draw's uniforms (``r01``, or ``envs`` and ``u``), ``noise`` the train
-    function's.  Returns the dispatch's metrics."""
+    function's.  Returns the dispatch's metrics.
+
+    On a mesh of several shards the cache is the env-sharded one: its draw
+    comes back whole (prioritized) or in shard order (uniform), the train
+    function runs once on the whole batch, which is the arithmetic of JAX's
+    data-parallel step up to the order of its reductions, and the TD errors
+    go to the shards' sub-trees.  A gradient step takes
+    ``per_rank_batch_size`` rows for each shard, as JAX's ``main`` scales the
+    batch by the world size (``sac.py:479``); its env loop, which also runs
+    ``env.num_envs`` envs per shard, is not ported."""
     g = len(ema_flags)
-    batch_unit = int(cfg.algo.per_rank_batch_size)
+    batch_unit = int(cfg.algo.per_rank_batch_size) * state.runtime.world_size
     sample_next_obs = bool(cfg.buffer.sample_next_obs)
     device = state.agent.log_alpha.device
     draws = draws or {}
@@ -196,6 +206,7 @@ def train_dispatch(
         }
         if state.prioritized:
             data["is_weights"] = torch.ones((g, batch_unit, 1), device=device)
+        data = state.runtime.shard_batch(data, axis=1)
     out = state.train_fn(state.opt_states, data, [bool(f) for f in ema_flags], noise=noise, generator=generator)
     state.opt_states, metrics = out[0], out[1]
     if sample_idx is not None:

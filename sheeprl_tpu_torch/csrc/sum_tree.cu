@@ -1,11 +1,13 @@
 // The prioritized-replay sum-tree for Hopper (sm_90a), with a plain C interface
 // bound through ctypes (sheeprl_tpu_torch/ops/per.py builds and loads it).
 //
-// Replaces three Pallas kernels of sheeprl_tpu/ops/pallas_per.py:
-//   _sample_kernel (the pallas_call of sum_tree_sample) -> sheeprl_sum_tree_sample
-//   _write_kernel  (the pallas_call of sum_tree_write)  -> sheeprl_sum_tree_write
-//   _update_kernel (the pallas_call of sum_tree_update) -> the same entry point
-//                  with the running-max fold switched on
+// Replaces the five Pallas kernels of sheeprl_tpu/ops/pallas_per.py:
+//   _sample_kernel  (the pallas_call of sum_tree_sample)  -> sheeprl_sum_tree_sample
+//   _write_kernel   (the pallas_call of sum_tree_write)   -> sheeprl_sum_tree_write
+//   _update_kernel  (the pallas_call of sum_tree_update)  -> the same entry point
+//                   with the running-max fold switched on
+//   _descend_kernel (the pallas_call of sum_tree_descend) -> sheeprl_sum_tree_descend
+//   _write_kernel   (the pallas_call of sum_tree_scatter) -> sheeprl_sum_tree_scatter
 //
 // The tree is a 1-based heap of 2P f32 (P = 2^depth leaves): the root, the
 // total mass, at 1, leaf l at P + l, slot 0 unused.
@@ -23,6 +25,11 @@
 // r01 * total - left would move a draw that lands within an ulp of a subtree
 // boundary.
 //
+// Descend: the same corrected descent for u given (already placed in this
+// tree's mass interval by the caller: one shard's sub-tree of the env-sharded
+// prioritized replay), returning each draw's leaf and its stored mass; no
+// total and no weights.  Sample and descend share the descent function.
+//
 // Write/update: set leaf[i] to values[i] where active[i], then rebuild every
 // touched ancestor bottom-up as tree[2p] + tree[2p + 1].  A leaf given by
 // several active lanes takes the value of the LAST of them (the lane with the
@@ -33,8 +40,15 @@
 // new_max = max(max_p, max_i where(active, values, 0)) into *new_max, which
 // holds max_p on entry.
 //
-// What bounds them on an H100.  All three are latency-bound walks over an
-// 8 MB tree (2^20 leaves) that sits in the 50 MB L2: a draw reads d + 1
+// Scatter: the write of one shard's sub-tree, for the lanes that are active
+// AND owned by the shard (shard_ids[i] == rank), with the shard's candidate
+// max_i where(owned and active, values, 0) folded into *cand_max (-inf on
+// entry) for the caller's max over shards.  The ownership test and the max
+// ride in the claim pass: a shard's scatter is the write's launches and no
+// other operation.
+//
+// What bounds them on an H100.  All are latency-bound walks over a tree of
+// 1-8 MB (2^18-2^20 leaves) that sits in the 50 MB L2: a draw reads d + 1
 // nodes one after another, a write d + 1 nodes per lane.  At the SAC
 // dispatch (n = 16,384 draws, d = 20) the descent touches at most
 // n (d + 1) 32-byte sectors, 11 MB, about 3.3 us at 3.35 TB/s; in practice
@@ -52,7 +66,8 @@
 // level, depth + 2 launches in all: a launch boundary is the barrier between
 // levels, so a block never waits on another.  Lanes that meet at a common
 // ancestor write the same sum there, a benign race.  Simple kernels: no
-// persistent blocks and no level fusion yet.
+// persistent blocks and no level fusion yet; a sharded tree's scatter is
+// depth + 2 launches per shard.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -87,6 +102,44 @@ __device__ __forceinline__ void stage_exclusions(const float* __restrict__ tree,
   }
 }
 
+// The corrected root-to-leaf descent of u; returns the heap node of the leaf.
+// Every thread of the block calls it (a thread past n with u = 0): above one
+// chunk of exclusions it stages the chunks again at every level, behind
+// barriers.  With one chunk, the caller has staged it.
+__device__ __forceinline__ int corrected_descent(const float* __restrict__ tree, int p, int depth, float u,
+                                                 const int* __restrict__ excl, const uint8_t* __restrict__ eact,
+                                                 int n_excl, int* s_enode, float* s_emass) {
+  const int n_chunks = (n_excl + kExclChunk - 1) / kExclChunk;
+  int node = 1;
+  for (int lvl = 0; lvl < depth; ++lvl) {
+    const int child = 2 * node;
+    float left = tree[child];
+    if (n_excl > 0) {
+      const int shift = depth - 1 - lvl;
+      float corr = 0.0f;
+      // the exclusions in index order, as the total: one chunk stays staged
+      // from above; more are streamed through shared memory at every level
+      for (int c = 0; c < n_chunks; ++c) {
+        const int base = c * kExclChunk;
+        const int m = min(kExclChunk, n_excl - base);
+        if (n_chunks > 1) {
+          __syncthreads();
+          stage_exclusions(tree, p, excl, eact, base, m, s_enode, s_emass);
+          __syncthreads();
+        }
+        for (int e = 0; e < m; ++e) {
+          if ((s_enode[e] >> shift) == child) corr = __fadd_rn(corr, s_emass[e]);
+        }
+      }
+      left = __fsub_rn(left, corr);
+    }
+    const bool right = u >= left;
+    if (right) u = __fsub_rn(u, left);
+    node = child + (right ? 1 : 0);
+  }
+  return node;
+}
+
 __global__ void __launch_bounds__(kThreads) sample_kernel(
     const float* __restrict__ tree, int depth, const float* __restrict__ r01, int n, float beta,
     float count, const int* __restrict__ excl, const uint8_t* __restrict__ eact, int n_excl,
@@ -115,34 +168,8 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   const float total = s_total;
-  float u = live ? __fmul_rn(r01[i], total) : 0.0f;
-  int node = 1;
-  for (int lvl = 0; lvl < depth; ++lvl) {
-    const int child = 2 * node;
-    float left = tree[child];
-    if (n_excl > 0) {
-      const int shift = depth - 1 - lvl;
-      float corr = 0.0f;
-      // the exclusions in index order, as the total: one chunk stays staged
-      // from above; more are streamed through shared memory at every level
-      for (int c = 0; c < n_chunks; ++c) {
-        const int base = c * kExclChunk;
-        const int m = min(kExclChunk, n_excl - base);
-        if (n_chunks > 1) {
-          __syncthreads();
-          stage_exclusions(tree, p, excl, eact, base, m, s_enode, s_emass);
-          __syncthreads();
-        }
-        for (int e = 0; e < m; ++e) {
-          if ((s_enode[e] >> shift) == child) corr = __fadd_rn(corr, s_emass[e]);
-        }
-      }
-      left = __fsub_rn(left, corr);
-    }
-    const bool right = u >= left;
-    if (right) u = __fsub_rn(u, left);
-    node = child + (right ? 1 : 0);
-  }
+  const float u = live ? __fmul_rn(r01[i], total) : 0.0f;
+  const int node = corrected_descent(tree, p, depth, u, excl, eact, n_excl, s_enode, s_emass);
   if (!live) return;
   const float mass = tree[node];
   const float probs = __fdiv_rn(fmaxf(mass, FLT_MIN), fmaxf(total, FLT_MIN));
@@ -152,26 +179,53 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(
   atomic_max_f32(wmax, w);
 }
 
+__global__ void __launch_bounds__(kThreads) descend_kernel(
+    const float* __restrict__ tree, int depth, const float* __restrict__ u_in, int n,
+    const int* __restrict__ excl, const uint8_t* __restrict__ eact, int n_excl, int* __restrict__ leaf_out,
+    float* __restrict__ mass_out) {
+  __shared__ int s_enode[kExclChunk];
+  __shared__ float s_emass[kExclChunk];
+  const int p = 1 << depth;
+  if (n_excl > 0 && n_excl <= kExclChunk) {  // the one chunk, staged once (more are streamed per level)
+    stage_exclusions(tree, p, excl, eact, 0, n_excl, s_enode, s_emass);
+    __syncthreads();
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  const float u = live ? u_in[i] : 0.0f;
+  const int node = corrected_descent(tree, p, depth, u, excl, eact, n_excl, s_enode, s_emass);
+  if (!live) return;
+  leaf_out[i] = node - p;
+  mass_out[i] = tree[node];
+}
+
 __global__ void __launch_bounds__(kThreads) normalize_kernel(float* __restrict__ w, const float* __restrict__ wmax, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) w[i] = __fdiv_rn(w[i], *wmax);
 }
 
+// a lane writes when it is active and, for a shard's scatter (shard_ids not
+// null), owned by the shard
+__device__ __forceinline__ bool lane_on(const uint8_t* __restrict__ active, const int* __restrict__ shard_ids,
+                                        int rank, int i) {
+  return active[i] != 0 && (shard_ids == nullptr || shard_ids[i] == rank);
+}
+
 __global__ void __launch_bounds__(kThreads) claim_kernel(
-    const int* __restrict__ leaf, const float* __restrict__ values, const uint8_t* __restrict__ active, int n,
-    int* __restrict__ owner, float* new_max) {
+    const int* __restrict__ leaf, const float* __restrict__ values, const uint8_t* __restrict__ active,
+    const int* __restrict__ shard_ids, int rank, int n, int* __restrict__ owner, float* new_max) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const bool act = active[i] != 0;
+  const bool act = lane_on(active, shard_ids, rank, i);
   if (new_max != nullptr) atomic_max_f32(new_max, act ? values[i] : 0.0f);
   if (act) atomicMax(&owner[leaf[i]], i);
 }
 
 __global__ void __launch_bounds__(kThreads) write_leaves_kernel(
     float* __restrict__ tree, int p, const int* __restrict__ leaf, const float* __restrict__ values,
-    const uint8_t* __restrict__ active, int n, int* owner) {
+    const uint8_t* __restrict__ active, const int* __restrict__ shard_ids, int rank, int n, int* owner) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !active[i]) return;
+  if (i >= n || !lane_on(active, shard_ids, rank, i)) return;
   const int l = leaf[i];
   // other lanes of leaf l read i or -1 here, never their own index
   if (owner[l] == i) {
@@ -181,14 +235,35 @@ __global__ void __launch_bounds__(kThreads) write_leaves_kernel(
 }
 
 __global__ void __launch_bounds__(kThreads) rebuild_level_kernel(
-    float* tree, int p, const int* __restrict__ leaf, const uint8_t* __restrict__ active, int n, int shift) {
+    float* tree, int p, const int* __restrict__ leaf, const uint8_t* __restrict__ active,
+    const int* __restrict__ shard_ids, int rank, int n, int shift) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !active[i]) return;
+  if (i >= n || !lane_on(active, shard_ids, rank, i)) return;
   const int node = (leaf[i] + p) >> shift;
   tree[node] = __fadd_rn(tree[2 * node], tree[2 * node + 1]);
 }
 
 inline unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
+
+int launch_write(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
+                 const int* shard_ids, int rank, int n, int* owner, float* max_out, cudaStream_t s) {
+  if (depth < 1 || depth > kMaxDepth || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const int p = 1 << depth;
+  const unsigned blocks = blocks_for(n);
+  claim_kernel<<<blocks, kThreads, 0, s>>>(leaf, values, active, shard_ids, rank, n, owner, max_out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  write_leaves_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, values, active, shard_ids, rank, n, owner);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int shift = 1; shift <= depth; ++shift) {
+    rebuild_level_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, active, shard_ids, rank, n, shift);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -211,27 +286,34 @@ int sheeprl_sum_tree_sample(const float* tree, int depth, const float* r01, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// leaf/mass are (n,) outputs: the leaf u[i] descends to and its stored mass.
+int sheeprl_sum_tree_descend(const float* tree, int depth, const float* u, int n, const int* excl,
+                             const uint8_t* eact, int n_excl, int* leaf, float* mass, void* stream) {
+  if (depth < 1 || depth > kMaxDepth || n < 0 || n_excl < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  descend_kernel<<<blocks_for(n), kThreads, 0, s>>>(tree, depth, u, n, excl, eact, n_excl, leaf, mass);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // In place on tree.  owner is (P,) int32 holding -1 on entry and on exit; new_max is null
 // for a plain write, else a device f32 holding max_p on entry.
 int sheeprl_sum_tree_write(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
                            int n, int* owner, float* new_max, void* stream) {
-  if (depth < 1 || depth > kMaxDepth || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int p = 1 << depth;
-  const unsigned blocks = blocks_for(n);
-  claim_kernel<<<blocks, kThreads, 0, s>>>(leaf, values, active, n, owner, new_max);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  write_leaves_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, values, active, n, owner);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int shift = 1; shift <= depth; ++shift) {
-    rebuild_level_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, active, n, shift);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return launch_write(tree, depth, leaf, values, active, nullptr, 0, n, owner, new_max,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// One shard's write, in place on its sub-tree: the lanes with active[i] and
+// shard_ids[i] == rank.  owner as for the write; *cand_max is a device f32
+// holding -inf on entry.
+int sheeprl_sum_tree_scatter(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
+                             const int* shard_ids, int rank, int n, int* owner, float* cand_max, void* stream) {
+  if (shard_ids == nullptr || cand_max == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_write(tree, depth, leaf, values, active, shard_ids, rank, n, owner, cand_max,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -29,7 +29,14 @@ and every gather through the hand-written kernels (``ops/per.py``,
 ``ops/gather.py``: one launch per draw), ``lax`` through the plain tree
 functions and per-key advanced indexing.  Both give the same bytes.
 
-The env-sharded cache of multi-device meshes waits for the multi-GPU slice.
+On a mesh of N shards (``MeshRuntime(devices=N)``, ``fabric.devices=N``)
+:class:`ShardedDeviceReplayCache` takes over: shard ``r`` owns the env
+columns ``[r * n_envs / N, (r + 1) * n_envs / N)`` of the rings and a
+sub-tree of the env-sharded sum-tree over their cells
+(``replay/priority_tree.py:ShardedPriorityTree``).  Uniform draws are
+stratified (each shard draws its share of the batch from its own envs);
+prioritized draws are globally proportional, each shard gathering the draws
+it owns, the batch assembled by a masked sum over the shards.
 """
 
 from __future__ import annotations
@@ -42,11 +49,19 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain, gather_windows, gather_windows_plain
-from sheeprl_tpu_torch.replay.priority_tree import PriorityTree, resolve_per_kernel
+from sheeprl_tpu_torch.parallel.sharding import psum
+from sheeprl_tpu_torch.replay.priority_tree import (
+    PriorityTree,
+    ShardedPriorityTree,
+    _tree_zeroed_local,
+    resolve_per_kernel,
+    shard_proportional_draw,
+)
 from sheeprl_tpu_torch.utils.utils import resolve_device
 
 __all__ = [
     "DeviceReplayCache",
+    "ShardedDeviceReplayCache",
     "device_cache_setting",
     "maybe_create_for",
     "maybe_create_for_transitions",
@@ -112,6 +127,8 @@ def maybe_create_for(cfg, runtime, rb, state=None) -> Optional["DeviceReplayCach
     if not isinstance(rb, EnvIndependentReplayBuffer):
         return None
     cache = DeviceReplayCache.maybe_create(cfg, runtime, capacity=rb.buffer_size, n_envs=rb.n_envs)
+    if cache is None:
+        cache = _maybe_create_sharded(cfg, runtime, rb.buffer_size, rb.n_envs)
     if cache is not None:
         cache.load_from(rb)
         if state is not None and cache.prioritized:
@@ -128,10 +145,55 @@ def maybe_create_for_transitions(cfg, runtime, rb, state=None) -> Optional["Devi
     if type(rb) is not ReplayBuffer:
         return None
     cache = DeviceReplayCache.maybe_create(cfg, runtime, capacity=rb.buffer_size, n_envs=rb.n_envs)
+    if cache is None:
+        # a mesh of several shards: the env-sharded cache keeps the rings and
+        # the per-shard sum-trees
+        cache = _maybe_create_sharded(cfg, runtime, rb.buffer_size, rb.n_envs)
     if cache is not None:
         cache.load_from_replay(rb)
         if state is not None and cache.prioritized:
             cache.load_priority_state(state.get("replay_priority"))
+    return cache
+
+
+def _maybe_create_sharded(cfg, runtime, capacity: int, n_envs: int) -> Optional["ShardedDeviceReplayCache"]:
+    """The gating of ``device_buffer.py:409-458`` for both buffer families:
+    on a mesh of several shards, the env-sharded cache when
+    ``buffer.device_cache`` is on or ``buffer.prioritized`` needs it.  A
+    prioritized run that cannot build it raises (there is no host sampler
+    to fall back to); otherwise the run keeps the host feed."""
+    mode = device_cache_setting(cfg)
+    prioritized = bool(cfg.buffer.get("prioritized", False))
+    if runtime.device_count <= 1:
+        return None
+    if mode == "off" or not (mode == "on" or prioritized):
+        return None
+    if n_envs % runtime.device_count:
+        blocker = f"n_envs ({n_envs}) not divisible by {runtime.device_count} devices"
+        if prioritized:
+            raise ValueError(
+                "buffer.prioritized=True needs the env-sharded device cache on a "
+                "multi-device mesh, which this run cannot build: " + blocker
+            )
+        print("DeviceReplayCache: buffer.device_cache=True ignored — " + blocker + "; keeping the host feed path")
+        return None
+    cache = ShardedDeviceReplayCache(
+        capacity,
+        n_envs,
+        runtime,
+        prioritized=prioritized,
+        per_alpha=float(cfg.buffer.get("per_alpha", 0.6)),
+        per_eps=float(cfg.buffer.get("per_eps", 1e-6)),
+        per_decay=cfg.buffer.get("per_decay_on_sample", None),
+        kernel=str(cfg.buffer.get("per_kernel", "lax")),
+    )
+    print(
+        f"DeviceReplayCache: env-sharded replay window enabled "
+        f"(capacity {capacity} x {n_envs} envs over "
+        f"{runtime.device_count} devices"
+        + (", prioritized per-shard sum-trees" if prioritized else "")
+        + ")"
+    )
     return cache
 
 
@@ -187,6 +249,8 @@ class DeviceReplayCache:
                     "drop one of the two (device_cache=auto enables the cache wherever PER needs it)"
                 )
             return None
+        if runtime.device_count != 1:
+            return None  # a mesh of several shards: the env-sharded cache (_maybe_create_sharded)
         if mode == "auto" and runtime.device.type == "cpu" and not prioritized:
             return None
         budget_gb = float(cfg.buffer.get("device_cache_budget_gb", 6.0))
@@ -582,6 +646,264 @@ class DeviceReplayCache:
         out = self._transitions(rows, envs, n_samples, batch_size, next_keys)
         out["is_weights"] = w.reshape(n_samples, batch_size, 1)
         return out, leaves.reshape(n_samples, batch_size)
+
+
+class ShardedDeviceReplayCache(DeviceReplayCache):
+    """The env-sharded cache of a mesh of N shards (``device_buffer.py:1054-1438``).
+
+    Shard ``r`` owns env columns ``[r * n_local, (r + 1) * n_local)`` of the
+    rings (``n_local = n_envs / N``) and the sub-tree of
+    :class:`~sheeprl_tpu_torch.replay.priority_tree.ShardedPriorityTree`
+    over their cells.  JAX places each device's columns on that device
+    (``P(None, BATCH_AXES)``); here every shard lies on the runtime's one
+    device, so the rings stay one tensor per key (the global layout, written
+    by the base class's adds and loads) and a shard's rings are its columns
+    of it (:meth:`shard_buffers`).  Each shard's work runs in shard order and
+    touches only its columns: the gathers address them by global env index
+    in one launch per shard.
+
+    - :meth:`sample` and :meth:`sample_transitions`: stratified uniform draws,
+      ``batch / N`` rows from each shard's own envs (JAX draws them from
+      ``fold_in(key, rank)``; ``envs``/``u`` here are (N, flat / N) per-shard
+      draws, envs shard-local), the batch axis in shard order;
+    - :meth:`sample_transitions_per` and :meth:`sample_per`: globally
+      proportional draws (:func:`shard_proportional_draw`), shard-local
+      exclusions, each shard gathering every draw and keeping those it owns,
+      the batch assembled by a masked sum over the shards (JAX's masked
+      psum, so the bytes are JAX's), IS weights from the summed masses and
+      the summed live counts."""
+
+    def __init__(
+        self,
+        capacity: int,
+        n_envs: int,
+        runtime,
+        budget_bytes: Optional[int] = None,
+        prioritized: bool = False,
+        per_alpha: float = 0.6,
+        per_eps: float = 1e-6,
+        per_decay: Optional[float] = None,
+        kernel: str = "lax",
+    ):
+        n_dev = runtime.device_count
+        if n_envs % n_dev:
+            raise ValueError(f"n_envs ({n_envs}) must divide over {n_dev} devices")
+        super().__init__(
+            capacity,
+            n_envs,
+            device=runtime.device,
+            budget_bytes=budget_bytes,
+            prioritized=prioritized,
+            per_alpha=per_alpha,
+            per_eps=per_eps,
+            per_decay=per_decay,
+            kernel=kernel,
+        )
+        self._runtime = runtime
+        self._n_dev = n_dev
+        self.n_local_envs = n_envs // n_dev
+
+    def _ensure_tree(self) -> None:
+        if self.prioritized and self._tree is None:
+            self._tree = ShardedPriorityTree(
+                self.capacity, self.n_envs, self._n_dev, self.device,
+                alpha=self.per_alpha, eps=self.per_eps, kernel=self.kernel,
+            )
+
+    def _cols(self, r: int) -> slice:
+        return slice(r * self.n_local_envs, (r + 1) * self.n_local_envs)
+
+    def shard_buffers(self, r: int) -> Dict[str, torch.Tensor]:
+        """Shard ``r``'s rings: (capacity, n_local, *feat) views of its columns."""
+        return {k: v[:, self._cols(r)] for k, v in self._bufs.items()}
+
+    def _local_draws(self, flat: int, generator, envs, u):
+        """Per-shard (envs, u): the given (N, flat / N) draws, or drawn from
+        ``generator`` shard by shard."""
+        if envs is None or u is None:
+            envs = torch.stack([
+                torch.randint(0, self.n_local_envs, (flat,), generator=generator, device=self.device, dtype=torch.int32)
+                for _ in range(self._n_dev)
+            ])
+            u = torch.rand((self._n_dev, flat), generator=generator, device=self.device)
+        return envs.to(self.device, torch.int32).reshape(self._n_dev, flat), u.to(self.device).reshape(self._n_dev, flat)
+
+    def _check_split(self, batch_size: int) -> None:
+        if batch_size % self._n_dev:
+            raise ValueError(f"batch_size ({batch_size}) must divide over {self._n_dev} devices")
+
+    # ---- per-shard stratified uniform samplers
+    def sample(
+        self,
+        n_samples: int,
+        batch_size: int,
+        seq_len: int,
+        generator: Optional[torch.Generator] = None,
+        *,
+        envs: Optional[torch.Tensor] = None,
+        u: Optional[torch.Tensor] = None,
+    ) -> List[Dict[str, torch.Tensor]]:
+        self._check_draw(batch_size, n_samples)
+        self._check_split(batch_size)
+        if not self.can_sample(seq_len):
+            raise ValueError(
+                f"Cannot sample a sequence of length {seq_len}. Data added so far: {int(self._filled.min())}"
+            )
+        b_local = batch_size // self._n_dev
+        envs, u = self._local_draws(n_samples * b_local, generator, envs, u)
+        gather = gather_windows if self.kernel == "pallas" else gather_windows_plain
+        parts = []
+        for r in range(self._n_dev):
+            cols = self._cols(r)
+            starts = sample_window_starts(
+                torch.from_numpy(self._pos[cols]).to(self.device),
+                torch.from_numpy(self._filled[cols]).to(self.device),
+                envs[r], u[r], seq_len=seq_len, cap=self.capacity,
+            ).contiguous()
+            env_g = (envs[r] + r * self.n_local_envs).contiguous()
+            parts.append(gather(self._bufs, starts, env_g, seq_len=seq_len, batch_size=b_local))
+        out = {k: torch.cat([p[k] for p in parts], 2) for k in parts[0]}
+        return [{k: v[i] for k, v in out.items()} for i in range(n_samples)]
+
+    def sample_transitions(
+        self,
+        n_samples: int,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        sample_next_obs: bool = False,
+        obs_keys: Sequence[str] = (),
+        *,
+        envs: Optional[torch.Tensor] = None,
+        u: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Stratified uniform flat-transition draw: each shard gathers
+        ``batch / N`` rows from its own env columns."""
+        self._transition_draw_ready(n_samples, batch_size, sample_next_obs)
+        self._check_split(batch_size)
+        b_local = batch_size // self._n_dev
+        envs, u = self._local_draws(n_samples * b_local, generator, envs, u)
+        next_keys = tuple(obs_keys) if sample_next_obs else ()
+        parts = []
+        for r in range(self._n_dev):
+            # the envs add in lockstep: the shard's first env's head and fill are its envs'
+            pos, filled = int(self._pos[r * self.n_local_envs]), int(self._filled[r * self.n_local_envs])
+            rows = sample_transition_rows(
+                u[r], base=pos if filled >= self.capacity else 0, count=filled - (1 if sample_next_obs else 0), cap=self.capacity
+            ).contiguous()
+            env_g = (envs[r] + r * self.n_local_envs).contiguous()
+            parts.append(self._transitions(rows, env_g, n_samples, b_local, next_keys))
+        return {k: torch.cat([p[k] for p in parts], 1) for k in parts[0]}
+
+    # ---- globally proportional prioritized samplers
+    def sample_transitions_per(
+        self,
+        n_samples: int,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        beta: float = 0.4,
+        sample_next_obs: bool = False,
+        obs_keys: Sequence[str] = (),
+        *,
+        r01: Optional[torch.Tensor] = None,
+    ):
+        self._transition_draw_ready(n_samples, batch_size, sample_next_obs)
+        self._check_tree()
+        next_keys = tuple(obs_keys) if sample_next_obs else ()
+        return self._sharded_per(n_samples, batch_size, None, next_keys, generator, r01, beta)
+
+    def sample_per(
+        self,
+        n_samples: int,
+        batch_size: int,
+        seq_len: int,
+        generator: Optional[torch.Generator] = None,
+        beta: float = 0.0,
+        *,
+        r01: Optional[torch.Tensor] = None,
+    ) -> List[Dict[str, torch.Tensor]]:
+        """Prioritized sequence starts (no IS weights: ``beta`` is unused, as
+        in JAX); with ``per_decay`` the drawn starts are decayed after."""
+        self._check_draw(batch_size, n_samples)
+        if not self.can_sample(seq_len):
+            raise ValueError(
+                f"Cannot sample a sequence of length {seq_len}. Data added so far: {int(self._filled.min())}"
+            )
+        self._check_tree()
+        out, leaves = self._sharded_per(n_samples, batch_size, int(seq_len), (), generator, r01, 0.0)
+        if self.per_decay is not None:
+            self._tree.scale(leaves, self.per_decay)
+        return [{k: v[i] for k, v in out.items()} for i in range(n_samples)]
+
+    def _shard_exclusions(self, r: int, seq_len: Optional[int], next_keys) -> Optional[torch.Tensor]:
+        """Shard ``r``'s local sampling exclusions: the L - 1 rows before each
+        env's head (window starts), or each env's head row (next observations)."""
+        nl = self.n_local_envs
+        pos_l = self._pos[self._cols(r)]
+        if seq_len is not None and seq_len > 1:
+            offs = np.arange(1, seq_len)
+            inv_rows = (pos_l[None, :] - offs[:, None]) % self.capacity  # (L-1, n_local)
+            excl = (inv_rows * nl + np.arange(nl)[None, :]).reshape(-1)
+        elif seq_len is None and next_keys:
+            excl = ((pos_l - 1) % self.capacity) * nl + np.arange(nl)
+        else:
+            return None
+        return torch.from_numpy(excl.astype(np.int32)).to(self.device)
+
+    def _sharded_per(self, n_samples, batch_size, seq_len, next_keys, generator, r01, beta):
+        """``_build_sharded_per``'s body for every shard (``device_buffer.py:1337-1438``):
+        ``seq_len=None`` draws flat transitions with IS weights, an int draws
+        window starts.  Returns the batch and the (n_samples, batch) int32
+        global leaves."""
+        flat = n_samples * batch_size
+        if r01 is None:
+            r01 = torch.rand((flat,), generator=generator, device=self.device)
+        r01 = r01.to(self.device, torch.float32).reshape(-1)
+        if r01.numel() != flat:
+            raise ValueError(f"{r01.numel()} uniforms for {flat} draws")
+        nl, depth = self.n_local_envs, self._tree.depth
+        excl = [self._shard_exclusions(r, seq_len, next_keys) for r in range(self._n_dev)]
+        trees = list(self._tree.trees)
+        if self.kernel == "pallas":
+            draws = shard_proportional_draw(
+                trees, r01, depth=depth, kernel="pallas", exclude_idx=None if excl[0] is None else excl
+            )
+        else:
+            trees = [t if e is None else _tree_zeroed_local(t, e, depth) for t, e in zip(trees, excl)]
+            draws = shard_proportional_draw(trees, r01, depth=depth)
+        windows = seq_len is not None
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        cells, parts = [], []
+        for r, (leaf, _, own, _) in enumerate(draws):
+            leaf = leaf.long()
+            rows = leaf // nl
+            env_g = r * nl + leaf % nl
+            cells.append(torch.where(own, rows * self.n_envs + env_g, zero))
+            if windows:
+                t_idx = (rows[:, None] + torch.arange(seq_len, device=self.device)[None, :]) % self.capacity
+                got = {k: buf[t_idx, env_g[:, None]] for k, buf in self._bufs.items()}  # (flat, L, *feat)
+            else:
+                got = gather_transitions_plain(self._bufs, rows, env_g, next_keys=next_keys)  # (flat, *feat)
+            parts.append({k: torch.where(own.reshape((flat,) + (1,) * (g.dim() - 1)), g, torch.zeros((), dtype=g.dtype, device=self.device)) for k, g in got.items()})
+        out = {}
+        for k in parts[0]:
+            g = psum([p[k] for p in parts])
+            if windows:
+                g = g.reshape(n_samples, batch_size, seq_len, *g.shape[2:]).transpose(1, 2).contiguous()
+            else:
+                g = g.reshape(n_samples, batch_size, *g.shape[1:])
+            out[k] = g
+        if not windows:
+            zf = torch.zeros((), device=self.device)
+            mass_global = psum([torch.where(own, mass, zf) for _, mass, own, _ in draws])
+            live = [float(self._filled[self._cols(r)].sum() - (nl if next_keys else 0)) for r in range(self._n_dev)]
+            n_live = psum([torch.tensor(v, dtype=torch.float32, device=self.device) for v in live])
+            total = draws[0][3]
+            tiny = torch.finfo(torch.float32).tiny
+            probs = torch.clamp_min(mass_global, tiny) / torch.clamp_min(total, tiny)
+            w = (torch.clamp_min(n_live, 1.0) * probs) ** (-torch.tensor(float(beta), dtype=torch.float32, device=self.device))
+            out["is_weights"] = (w / w.max()).reshape(n_samples, batch_size, 1)
+        leaves = psum(cells).to(torch.int32).reshape(n_samples, batch_size)
+        return out, leaves
 
 
 @contextlib.contextmanager

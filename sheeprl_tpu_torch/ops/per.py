@@ -1,9 +1,10 @@
 """The prioritized-replay sum-tree: hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``sheeprl_tpu/ops/pallas_per.py``: ``sum_tree_sample`` (#5),
-``sum_tree_write`` (#6) and ``sum_tree_update`` (#7).  The tree is the
-1-based heap of ``replay/priority_tree.py``: a (2P,) f32 tensor, the root at
-1, leaf ``l`` at ``P + l``, slot 0 unused.
+``sum_tree_write`` (#6), ``sum_tree_update`` (#7), ``sum_tree_descend`` (#8)
+and ``sum_tree_scatter`` (#9).  The tree is the 1-based heap of
+``replay/priority_tree.py``: a (2P,) f32 tensor, the root at 1, leaf ``l`` at
+``P + l``, slot 0 unused.
 
 - :func:`sum_tree_sample`: ``n`` proportional draws with exclusions folded
   into the descent as mass corrections (the stored tree is not copied), and
@@ -13,8 +14,16 @@ Counterpart of ``sheeprl_tpu/ops/pallas_per.py``: ``sum_tree_sample`` (#5),
   ancestors bottom-up, in place on ``tree``.
 - :func:`sum_tree_update`: the same write, and the running max
   ``max(max_p, max(where(active, priorities, 0)))``, returned.
+- :func:`sum_tree_descend`: the corrected descent alone, for uniforms
+  already placed in the tree's mass interval: each draw's leaf and stored
+  mass.  One shard's sub-tree of the env-sharded tree
+  (``replay/priority_tree.py:shard_proportional_draw``).
+- :func:`sum_tree_scatter`: one shard's write, for the lanes that are active
+  and owned by the shard (``shard_ids == rank``), in place on the shard's
+  sub-tree, and the shard's candidate running max
+  ``max(where(active & owned, values, 0))``, returned.
 
-The two writes pick each leaf's writer in a (P,) int32 scratch that holds -1
+The writes pick each leaf's writer in a (P,) int32 scratch that holds -1
 on entry and again on exit: a caller that writes often keeps one from
 :func:`owner_scratch` and passes it as ``owner`` (``PriorityTree`` does), so a
 call costs the lanes' paths and no P-sized fill.
@@ -41,8 +50,12 @@ from sheeprl_tpu_torch.ops.build import CudaLibrary
 __all__ = [
     "LIBRARY",
     "owner_scratch",
+    "sum_tree_descend",
+    "sum_tree_descend_plain",
     "sum_tree_sample",
     "sum_tree_sample_plain",
+    "sum_tree_scatter",
+    "sum_tree_scatter_plain",
     "sum_tree_update",
     "sum_tree_update_plain",
     "sum_tree_write",
@@ -56,6 +69,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheeprl_sum_tree_sample.restype = i32
     lib.sheeprl_sum_tree_write.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr]
     lib.sheeprl_sum_tree_write.restype = i32
+    lib.sheeprl_sum_tree_descend.argtypes = [ptr, i32, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr]
+    lib.sheeprl_sum_tree_descend.restype = i32
+    lib.sheeprl_sum_tree_scatter.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+    lib.sheeprl_sum_tree_scatter.restype = i32
 
 
 LIBRARY = CudaLibrary("sum_tree.cu", "libsheeprl_sum_tree", _bind)
@@ -80,33 +97,53 @@ def _scalar(x, tree: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ plain
-def sum_tree_sample_plain(
-    tree: torch.Tensor, r01: torch.Tensor, beta, count, *, depth: int, exclude_idx=None, exclude_active=None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_sample_kernel`` with ``_corrected_descent`` (``pallas_per.py:78-117``)
-    in torch ops: (n,) int32 leaves and (n,) f32 weights."""
-    p = 1 << depth
-    excl, eact = _excl_args(tree, exclude_idx, exclude_active)
-    node = torch.ones(r01.shape, dtype=torch.int64, device=tree.device)
-    total = tree[1]
-    if excl is not None:
-        enode = excl.long() + p
-        emass = torch.where(eact, tree[enode], torch.zeros((), device=tree.device))
-        total = total - emass.sum()
-    u = r01.float() * total
+def _descend_plain(tree: torch.Tensor, u: torch.Tensor, depth: int, enode=None, emass=None) -> torch.Tensor:
+    """``_corrected_descent`` (``pallas_per.py:78-97``): the heap node each
+    ``u`` descends to, the excluded masses ``emass`` at heap nodes ``enode``
+    subtracted from each level's left child."""
+    node = torch.ones(u.shape, dtype=torch.int64, device=tree.device)
     for lvl in range(depth):
         child = 2 * node
         left = tree[child]
-        if excl is not None:
+        if enode is not None:
             anc = enode >> (depth - 1 - lvl)
             left = left - torch.where(anc[None, :] == child[:, None], emass[None, :], torch.zeros((), device=tree.device)).sum(1)
         right = u >= left
         u = torch.where(right, u - left, u)
         node = child + right.long()
+    return node
+
+
+def _excluded(tree: torch.Tensor, excl, eact, depth: int):
+    """The excluded leaves' heap nodes and masses (0 where inactive), or (None, None)."""
+    if excl is None:
+        return None, None
+    enode = excl.long() + (1 << depth)
+    return enode, torch.where(eact, tree[enode], torch.zeros((), device=tree.device))
+
+
+def sum_tree_sample_plain(
+    tree: torch.Tensor, r01: torch.Tensor, beta, count, *, depth: int, exclude_idx=None, exclude_active=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_sample_kernel`` with ``_corrected_descent`` (``pallas_per.py:78-117``)
+    in torch ops: (n,) int32 leaves and (n,) f32 weights."""
+    enode, emass = _excluded(tree, *_excl_args(tree, exclude_idx, exclude_active), depth)
+    total = tree[1] if enode is None else tree[1] - emass.sum()
+    node = _descend_plain(tree, r01.float() * total, depth, enode, emass)
     mass = tree[node]
     probs = torch.clamp_min(mass, _TINY) / torch.clamp_min(total, _TINY)
     w = (torch.clamp_min(_scalar(count, tree), 1.0) * probs) ** (-_scalar(beta, tree))
-    return (node - p).to(torch.int32), w / w.max()
+    return (node - (1 << depth)).to(torch.int32), w / w.max()
+
+
+def sum_tree_descend_plain(
+    tree: torch.Tensor, u: torch.Tensor, *, depth: int, exclude_idx=None, exclude_active=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_descend_kernel`` (``pallas_per.py:120-125``) in torch ops: (n,)
+    int32 leaves and their (n,) f32 stored masses."""
+    enode, emass = _excluded(tree, *_excl_args(tree, exclude_idx, exclude_active), depth)
+    node = _descend_plain(tree, u.float(), depth, enode, emass)
+    return (node - (1 << depth)).to(torch.int32), tree[node]
 
 
 def sum_tree_write_plain(tree: torch.Tensor, leaf_idx, values, active, *, depth: int) -> torch.Tensor:
@@ -138,6 +175,23 @@ def sum_tree_update_plain(tree: torch.Tensor, max_p, leaf_idx, priorities, activ
     new_max = torch.maximum(_scalar(max_p, tree), torch.where(act, pri, torch.zeros((), device=tree.device)).max())
     sum_tree_write_plain(tree, leaf_idx, pri, act, depth=depth)
     return new_max
+
+
+def sum_tree_scatter_plain(
+    tree: torch.Tensor, local_leaf, values, active, shard_ids, rank: int, *, depth: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's write of ``ShardedPriorityTree._build_write``'s body
+    (``priority_tree.py:475-490``) in torch ops: the lanes with ``active``
+    and ``shard_ids == rank`` written in place on ``tree``, and the shard's
+    candidate max ``max(where(those lanes, values, 0))`` (0-d f32).
+    Returns ``(tree, cand_max)``."""
+    vals = torch.as_tensor(values, device=tree.device).reshape(-1).to(tree.dtype)
+    act = torch.as_tensor(active, device=tree.device).reshape(-1).to(torch.bool)
+    act = act & (torch.as_tensor(shard_ids, device=tree.device).reshape(-1) == int(rank))
+    if not act.numel():
+        raise ValueError("sum_tree_scatter: no lanes (the max of nothing is undefined)")
+    cand = torch.where(act, vals, torch.zeros((), device=tree.device)).max()
+    return sum_tree_write_plain(tree, local_leaf, vals, act, depth=depth), cand
 
 
 # ---------------------------------------------------------------- kernels
@@ -198,12 +252,16 @@ def owner_scratch(depth: int, device) -> torch.Tensor:
     return torch.full((1 << depth,), -1, dtype=torch.int32, device=device)
 
 
+def _check_owner(owner: torch.Tensor, tree: torch.Tensor, depth: int, name: str) -> None:
+    if owner.dtype != torch.int32 or owner.device != tree.device or owner.numel() != 1 << depth or not owner.is_contiguous():
+        raise ValueError(f"{name}: owner must be {1 << depth} contiguous int32 on {tree.device}")
+
+
 def _launch_write(tree, depth, leaf, vals, act, new_max: Optional[torch.Tensor], owner, name: str) -> None:
     lib = LIBRARY.load()
     if owner is None:
         owner = owner_scratch(depth, tree.device)
-    elif owner.dtype != torch.int32 or owner.device != tree.device or owner.numel() != 1 << depth:
-        raise ValueError(f"{name}: owner must be {1 << depth} int32 on {tree.device}")
+    _check_owner(owner, tree, depth, name)
     err = lib.sheeprl_sum_tree_write(
         tree.data_ptr(), int(depth), leaf.data_ptr(), vals.data_ptr(), act.data_ptr(), int(leaf.numel()),
         owner.data_ptr(), None if new_max is None else new_max.data_ptr(),
@@ -246,6 +304,71 @@ def sum_tree_update(tree: torch.Tensor, max_p, leaf_idx, priorities, active, *, 
     return new_max[0]
 
 
+def sum_tree_descend(
+    tree: torch.Tensor, u: torch.Tensor, *, depth: int, exclude_idx=None, exclude_active=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n = u.numel()`` corrected descents of ``u`` (in [0, the tree's mass
+    less the excluded mass)): (n,) int32 leaves and their (n,) f32 stored
+    masses.  ``exclude_idx`` (distinct where active) are left out of the
+    descent without touching the tree."""
+    if tree.device.type == "cpu":
+        return sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=exclude_idx, exclude_active=exclude_active)
+    _device(tree, "sum_tree_descend")
+    _check_tree(tree, depth, "sum_tree_descend")
+    u = u.to(tree.device, torch.float32).reshape(-1).contiguous()
+    excl, eact = _excl_args(tree, exclude_idx, exclude_active)
+    lib = LIBRARY.load()
+    n = int(u.numel())
+    leaf = torch.empty(n, dtype=torch.int32, device=tree.device)
+    mass = torch.empty(n, dtype=torch.float32, device=tree.device)
+    err = lib.sheeprl_sum_tree_descend(
+        tree.data_ptr(), int(depth), u.data_ptr(), n,
+        None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(),
+        0 if excl is None else int(excl.numel()), leaf.data_ptr(), mass.data_ptr(),
+        torch.cuda.current_stream(tree.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sum_tree_descend kernel launch failed: cudaError {err}")
+    sum_tree_descend.launches += 1
+    return leaf, mass
+
+
+def sum_tree_scatter(
+    tree: torch.Tensor, local_leaf, values, active, shard_ids, rank: int, *, depth: int, owner=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's write: ``local_leaf`` set to ``values`` for the lanes with
+    ``active`` and ``shard_ids == rank`` (their leaves in [0, P)), ancestors
+    rebuilt, in place on ``tree``; returns ``(tree, cand_max)`` with the
+    shard's ``max(where(those lanes, values, 0))`` as a 0-d f32 tensor.
+    ``owner`` as for :func:`sum_tree_write`."""
+    if tree.device.type == "cpu":
+        return sum_tree_scatter_plain(tree, local_leaf, values, active, shard_ids, rank, depth=depth)
+    _device(tree, "sum_tree_scatter")
+    _check_tree(tree, depth, "sum_tree_scatter")
+    leaf, vals, act = _write_args(tree, local_leaf, values, active)
+    sid = torch.as_tensor(shard_ids, device=tree.device).reshape(-1).to(torch.int32).contiguous()
+    if sid.numel() != leaf.numel():
+        raise ValueError(f"sum_tree_scatter: {leaf.numel()} leaves, {sid.numel()} shard ids")
+    if not leaf.numel():
+        raise ValueError("sum_tree_scatter: no lanes (the max of nothing is undefined)")
+    lib = LIBRARY.load()
+    if owner is None:
+        owner = owner_scratch(depth, tree.device)
+    _check_owner(owner, tree, depth, "sum_tree_scatter")
+    cand = torch.full((1,), float("-inf"), dtype=torch.float32, device=tree.device)
+    err = lib.sheeprl_sum_tree_scatter(
+        tree.data_ptr(), int(depth), leaf.data_ptr(), vals.data_ptr(), act.data_ptr(), sid.data_ptr(), int(rank),
+        int(leaf.numel()), owner.data_ptr(), cand.data_ptr(), torch.cuda.current_stream(tree.device).cuda_stream,
+    )
+    if err != 0:
+        owner.fill_(-1)  # a launch that failed part-way may leave claims behind
+        raise RuntimeError(f"sum_tree_scatter kernel launch failed: cudaError {err}")
+    sum_tree_scatter.launches += 1
+    return tree, cand[0]
+
+
 sum_tree_sample.launches = 0
 sum_tree_write.launches = 0
 sum_tree_update.launches = 0
+sum_tree_descend.launches = 0
+sum_tree_scatter.launches = 0

@@ -23,25 +23,37 @@ Writes are in place on :attr:`PriorityTree.tree`.  A leaf written by several
 active lanes of one call takes the last lane's value; parents are rebuilt
 from the final children, so the tree stays consistent.
 
-The env-sharded tree of multi-device meshes waits for the multi-GPU slice.
+The env-sharded tree of a mesh of N shards (:class:`ShardedPriorityTree`):
+each shard owns a sub-tree over its env columns' cells, the sub-trees are the
+rows of one (N, 2P) tensor on the runtime's device, and a draw places every
+shard's mass interval in the global CDF (:func:`shard_proportional_draw`).
+JAX runs the shards' bodies inside ``shard_map`` on its devices; the port
+runs them one after another on one device, each shard's descent and write a
+launch of kernels #8 and #9 (``pallas``) on its own row, and its collectives
+are sums and maxima over the shards in shard order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.ops.per import (
     owner_scratch,
+    sum_tree_descend,
+    sum_tree_descend_plain,
     sum_tree_sample,
     sum_tree_sample_plain,
+    sum_tree_scatter,
+    sum_tree_scatter_plain,
     sum_tree_update,
     sum_tree_update_plain,
     sum_tree_write,
     sum_tree_write_plain,
 )
+from sheeprl_tpu_torch.parallel.sharding import pmax, psum
 from sheeprl_tpu_torch.utils.utils import resolve_device
 
 __all__ = [
@@ -87,6 +99,14 @@ def _tree_zeroed(tree: torch.Tensor, leaf_idx, active, depth: int) -> torch.Tens
     ``tree`` is untouched."""
     leaf = torch.as_tensor(leaf_idx, device=tree.device).reshape(-1)
     return sum_tree_write_plain(tree.clone(), leaf, torch.zeros(leaf.shape, device=tree.device), active, depth=depth)
+
+
+def _tree_zeroed_local(tree: torch.Tensor, leaf_idx, depth: int) -> torch.Tensor:
+    """:func:`_tree_zeroed` of one shard's sub-tree with every lane active
+    (``priority_tree.py:122``): the lax path's exclusions inside a shard's
+    draw."""
+    leaf = torch.as_tensor(leaf_idx, device=tree.device).reshape(-1)
+    return _tree_zeroed(tree, leaf, torch.ones(leaf.shape, dtype=torch.bool, device=tree.device), depth)
 
 
 class PriorityTree:
@@ -241,12 +261,216 @@ class PriorityTree:
         self.max_priority = torch.tensor(float(state["max_priority"]), dtype=torch.float32, device=self.device)
 
 
-def shard_proportional_draw(*args, **kwargs):
-    raise NotImplementedError("the env-sharded prioritized draw is not ported yet: it comes with the multi-GPU slice")
+# --------------------------------------------------------------------- sharded
+_ONE_LESS_ULP = torch.tensor(1.0 - 1e-7, dtype=torch.float32)  # JAX's f32(1 - 1e-7)
+
+
+def shard_proportional_draw(
+    trees: Sequence[torch.Tensor],
+    r01: torch.Tensor,
+    *,
+    depth: int,
+    kernel: str = "lax",
+    exclude_idx: Optional[Sequence] = None,
+    exclude_active: Optional[Sequence] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Globally proportional draw from per-shard sub-trees
+    (``priority_tree.py:331-399``), every shard's body in shard order.
+
+    ``trees`` are the shards' sub-trees (the rows of
+    :attr:`ShardedPriorityTree.trees`), ``r01`` the n uniforms that every
+    shard draws (JAX's ``uniform(key, (n,))``, the key not folded with the
+    rank).  The global mass space is the shards' masses side by side: their
+    sum in shard order (JAX's one ``psum``) places each shard's interval,
+    each shard descends its own sub-tree for all n draws and owns the draws
+    whose ``u`` falls in its interval, so each draw has exactly one owner and
+    the marginals are a single global tree's.
+
+    Returns, for each shard, ``(local_leaf, mass, own, total)``: the
+    shard-local leaf and its mass for all n draws (meaningless where ``own``
+    is False), the ownership mask and the global total mass.
+
+    ``kernel="pallas"`` descends through kernel #8 (``sum_tree_descend``)
+    with the shard-local exclusions ``exclude_idx[r]`` (``exclude_active[r]``)
+    folded into the descent; the lax path takes no exclusions (its caller
+    zeroes them in a copy of the sub-tree, :func:`_tree_zeroed_local`)."""
+    n_shards = len(trees)
+    device = trees[0].device
+    one_less = _ONE_LESS_ULP.to(device)
+    excl = [None] * n_shards if exclude_idx is None else list(exclude_idx)
+    eact = [None] * n_shards if exclude_active is None else list(exclude_active)
+    if kernel == "pallas":
+        m_local = []
+        for r, tree in enumerate(trees):
+            if excl[r] is None:
+                m_local.append(tree[1])
+                continue
+            e = torch.as_tensor(excl[r], device=device).reshape(-1).long()
+            a = torch.ones(e.shape, dtype=torch.bool, device=device) if eact[r] is None else torch.as_tensor(eact[r], device=device).reshape(e.shape).bool()
+            m_local.append(tree[1] - torch.where(a, tree[e + (1 << depth)], torch.zeros((), device=device)).sum())
+    else:
+        if exclude_idx is not None:
+            raise ValueError("exclude_idx on the lax path: zero the sub-trees instead")
+        m_local = [tree[1] for tree in trees]
+    masses = torch.stack(m_local)  # JAX's psum of one-hot mass vectors: exact
+    prefix = torch.cat([torch.zeros(1, dtype=torch.float32, device=device), torch.cumsum(masses, 0)])
+    total = prefix[-1]
+    # u == total would fall outside every half-open interval: clamp below 1
+    u = torch.minimum(r01.to(device, torch.float32).reshape(-1), one_less) * total
+    out = []
+    for r, tree in enumerate(trees):
+        lo, hi = prefix[r], prefix[r + 1]
+        own = (u >= lo) & (u < hi)
+        # cumsum rounding can widen a shard's interval past its own mass by an ulp
+        u_loc = torch.clamp(u - lo, torch.zeros((), device=device), m_local[r] * one_less)
+        if kernel == "pallas":
+            leaf, mass = sum_tree_descend(tree, u_loc, depth=depth, exclude_idx=excl[r], exclude_active=eact[r])
+        else:
+            leaf, mass = sum_tree_descend_plain(tree, u_loc, depth=depth)
+        out.append((leaf, mass, own, total))
+    return out
 
 
 class ShardedPriorityTree:
-    """The env-sharded sum-tree of multi-device meshes: not ported yet."""
+    """The env-sharded counterpart of :class:`PriorityTree` for
+    ``ShardedDeviceReplayCache`` (``priority_tree.py:402-614``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ShardedPriorityTree is not ported yet: it comes with the multi-GPU slice")
+    Shard ``r`` owns the cells of envs ``[r * n_local, (r + 1) * n_local)``
+    in a sub-tree whose leaf is ``row * n_local + env_local``; the sub-trees
+    are the rows of :attr:`trees`, an (n_shards, 2P) f32 tensor on
+    ``device`` (JAX's stacked ``trees``, sharded over the mesh).  A write
+    goes to every shard, which writes the lanes it owns (kernel #9 on the
+    ``pallas`` path), and the running max takes the maximum of the shards'
+    candidates.  The API takes global cell ids, and the checkpoint state is
+    in global leaf order, so a sharded run and a single-device run can
+    resume each other."""
+
+    def __init__(
+        self,
+        capacity: int,
+        n_envs: int,
+        n_shards: int,
+        device=None,
+        *,
+        alpha: float = 0.6,
+        eps: float = 1e-6,
+        initial_priority: float = 1.0,
+        kernel: str = "lax",
+    ):
+        if n_envs % n_shards:
+            raise ValueError(f"n_envs ({n_envs}) must divide over {n_shards} shards")
+        self.capacity = int(capacity)
+        self.n_envs = int(n_envs)
+        self.n_shards = int(n_shards)
+        self.n_local_envs = self.n_envs // self.n_shards
+        self.n_leaves = self.capacity * self.n_envs
+        self.n_leaves_local = self.capacity * self.n_local_envs
+        self.alpha = float(alpha)
+        self.eps = float(eps)
+        self.kernel = resolve_per_kernel(kernel)
+        self.depth = max(int(self.n_leaves_local - 1).bit_length(), 1)
+        self.device = resolve_device(device)
+        self.trees = torch.zeros((self.n_shards, 2 << self.depth), dtype=torch.float32, device=self.device)
+        self.max_priority = torch.tensor(float(initial_priority), dtype=torch.float32, device=self.device)
+        self._owner: Optional[torch.Tensor] = None  # kernel #9's scratch, made at its first write
+
+    # ------------------------------------------------------------- mapping
+    def _map_leaves(self, leaf_idx):
+        """Global cell id -> (owning shard, shard-local leaf); tensors or numpy."""
+        row = leaf_idx // self.n_envs
+        env = leaf_idx % self.n_envs
+        return env // self.n_local_envs, row * self.n_local_envs + env % self.n_local_envs
+
+    def _idx(self, leaf_idx) -> torch.Tensor:
+        return torch.as_tensor(leaf_idx, device=self.device).reshape(-1).to(torch.int64)
+
+    _mask = PriorityTree._mask
+    # the shards' scatters run one after another and each leaves the scratch
+    # all -1, so one (P,) scratch serves every shard
+    _scratch = PriorityTree._scratch
+
+    def _write(self, leaf_idx, values, active, track_max: bool) -> None:
+        """Every shard writes the active lanes it owns; with ``track_max`` the
+        running max takes the maximum of the shards' candidates (JAX's pmax)."""
+        leaf = self._idx(leaf_idx)
+        values = torch.as_tensor(values, device=self.device).reshape(leaf.shape).to(torch.float32)
+        active = self._mask(active, leaf)
+        shard_ids, local_leaf = (t.to(torch.int32) for t in self._map_leaves(leaf))
+        owner = self._scratch() if self.kernel == "pallas" else None
+        cands = []
+        for r in range(self.n_shards):
+            if self.kernel == "pallas":
+                _, cand = sum_tree_scatter(self.trees[r], local_leaf, values, active, shard_ids, r, depth=self.depth, owner=owner)
+            else:
+                _, cand = sum_tree_scatter_plain(self.trees[r], local_leaf, values, active, shard_ids, r, depth=self.depth)
+            cands.append(cand)
+        if track_max:
+            self.max_priority = torch.maximum(self.max_priority, pmax(cands))
+
+    # ------------------------------------------------------------- write API
+    def seed_max(self, leaf_idx, active) -> None:
+        leaf = self._idx(leaf_idx)
+        self._write(leaf, self.max_priority.expand(leaf.shape), active, track_max=False)
+
+    def update(self, leaf_idx, td_abs, active=None) -> None:
+        leaf = self._idx(leaf_idx)
+        pri = priority_from_td(
+            torch.as_tensor(td_abs, device=self.device).to(torch.float32).reshape(leaf.shape), self.alpha, self.eps
+        )
+        self._write(leaf, pri, active, track_max=True)
+
+    def scale(self, leaf_idx, factor: float) -> None:
+        leaf = self._idx(leaf_idx)
+        vals = self.priorities(leaf) * torch.tensor(float(factor), dtype=torch.float32, device=self.device)
+        self._write(leaf, vals, None, track_max=False)
+
+    def set_priorities(self, leaf_idx, priorities, active=None) -> None:
+        self._write(self._idx(leaf_idx), priorities, active, track_max=False)
+
+    # ------------------------------------------------------------- read
+    def priorities(self, leaf_idx) -> torch.Tensor:
+        """Per-cell priorities of global cell ids: each shard contributes the
+        cells it owns to one masked sum (JAX's masked psum)."""
+        leaf = self._idx(leaf_idx)
+        shard_ids, local_leaf = self._map_leaves(leaf)
+        node = local_leaf + (1 << self.depth)
+        zero = torch.zeros((), device=self.device)
+        return psum([torch.where(shard_ids == r, self.trees[r][node], zero) for r in range(self.n_shards)])
+
+    @property
+    def total(self) -> float:
+        return float(self.trees[:, 1].sum())
+
+    # ------------------------------------------------------- checkpoint
+    def state_dict(self) -> dict:
+        """:class:`PriorityTree`'s schema: leaves in global cell order."""
+        p = 1 << self.depth
+        local = self.trees[:, p : p + self.n_leaves_local].cpu().numpy()
+        # (shard, row * n_local + e) -> global order (row, shard, e)
+        leaves = local.reshape(self.n_shards, self.capacity, self.n_local_envs).transpose(1, 0, 2).reshape(-1)
+        return {
+            "leaves": np.ascontiguousarray(leaves),
+            "max_priority": self.max_priority.cpu().numpy(),
+            "alpha": self.alpha,
+            "eps": self.eps,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        leaves = np.asarray(state["leaves"], np.float32)
+        if leaves.shape[0] != self.n_leaves:
+            raise ValueError(f"priority state has {leaves.shape[0]} leaves, tree expects {self.n_leaves}")
+        p = 1 << self.depth
+        local = (
+            leaves.reshape(self.capacity, self.n_shards, self.n_local_envs)
+            .transpose(1, 0, 2)
+            .reshape(self.n_shards, self.n_leaves_local)
+        )
+        full = np.zeros((self.n_shards, 2 << self.depth), np.float32)
+        full[:, p : p + self.n_leaves_local] = local
+        # rebuild the internal nodes level by level, every shard at once
+        lo = p
+        while lo > 1:
+            full[:, lo // 2 : lo] = full[:, lo : 2 * lo : 2] + full[:, lo + 1 : 2 * lo : 2]
+            lo //= 2
+        self.trees = torch.from_numpy(full).to(self.device)
+        self.max_priority = torch.tensor(float(state["max_priority"]), dtype=torch.float32, device=self.device)

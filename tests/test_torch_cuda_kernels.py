@@ -337,3 +337,95 @@ def test_sum_tree_sample_streams_exclusions(n_excl):
     assert torch.equal(leaf, leaf_p)
     assert ((w - w_p).abs() <= 1e-6 * w_p.abs()).all()
     assert not torch.isin(leaf, excl[active]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_excl", [0, 1, 63, 2016])
+def test_sum_tree_descend_matches_plain(n_excl):
+    """Kernel #8 on one shard's sub-tree at the sharded SAC path's size
+    (250,000 leaves, depth 18), 16,384 draws in the shard's mass interval,
+    integer-valued priorities (exact sums): leaves and masses identical to
+    the plain version, no excluded or padded leaf reached."""
+    from sheeprl_tpu_torch.ops.per import sum_tree_descend, sum_tree_descend_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(100 + n_excl)
+    n_leaves = 250000
+    tree = _tree(n_leaves, torch.randint(0, 9, (n_leaves,), generator=g, device="cuda").float())
+    excl = torch.randperm(n_leaves, generator=g, device="cuda")[:n_excl].to(torch.int32) if n_excl else None
+    p = 1 << tree.depth
+    m = tree.tree[1] - (tree.tree[excl.long() + p].sum() if n_excl else 0.0)
+    u = torch.rand(16384, generator=g, device="cuda") * m * (1.0 - 1e-7)
+    before = sum_tree_descend.launches
+    leaf, mass = sum_tree_descend(tree.tree, u, depth=tree.depth, exclude_idx=excl)
+    leaf_p, mass_p = sum_tree_descend_plain(tree.tree, u, depth=tree.depth, exclude_idx=excl)
+    torch.cuda.synchronize()
+    assert sum_tree_descend.launches == before + 1
+    assert leaf.dtype == torch.int32 and torch.equal(leaf, leaf_p) and torch.equal(mass, mass_p)
+    assert int(leaf.max()) < n_leaves
+    if excl is not None:
+        assert not torch.isin(leaf, excl).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [256, 16384])
+def test_sum_tree_scatter_matches_plain(lanes):
+    """Kernel #9 for each of 4 shards on its sub-tree (250,000 leaves):
+    duplicate lanes with equal and unequal values, inactive lanes and the
+    other shards' lanes on the same local leaves; heaps identical from slot
+    1, the candidate max exact, slot 0 untouched, the owner scratch clean."""
+    from sheeprl_tpu_torch.ops.per import owner_scratch, sum_tree_scatter, sum_tree_scatter_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(lanes)
+    n_leaves = 250000
+    tree = _tree(n_leaves, torch.rand(n_leaves, generator=g, device="cuda"))
+    leaf = torch.randint(0, n_leaves, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+    leaf[lanes // 2 :] = leaf[: lanes - lanes // 2]
+    vals = torch.rand(lanes, generator=g, device="cuda") * 3
+    vals[lanes // 2 : lanes // 2 + lanes // 4] = vals[: lanes // 4]
+    active = torch.rand(lanes, generator=g, device="cuda") < 0.7
+    shard_ids = torch.randint(0, 4, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+    owner = owner_scratch(tree.depth, "cuda")
+    for rank in range(4):
+        a, b = tree.tree.clone(), tree.tree.clone()
+        before = sum_tree_scatter.launches
+        out, cand = sum_tree_scatter(a, leaf, vals, active, shard_ids, rank, depth=tree.depth, owner=owner)
+        _, cand_p = sum_tree_scatter_plain(b, leaf, vals, active, shard_ids, rank, depth=tree.depth)
+        torch.cuda.synchronize()
+        assert out is a and sum_tree_scatter.launches == before + 1
+        assert torch.equal(a[1:], b[1:]) and float(cand) == float(cand_p)
+        assert float(a[0]) == float(tree.tree[0])
+        assert bool((owner == -1).all())
+
+
+@pytest.mark.cuda
+def test_sharded_priority_tree_kernels_match_lax():
+    """``ShardedPriorityTree`` on 4 shards with kernels #8 and #9 against the
+    same tree through the plain functions: seeding, TD updates, a decay and
+    a draw, the trees and the draws identical; the four shards share one
+    owner scratch."""
+    from sheeprl_tpu_torch.replay.priority_tree import ShardedPriorityTree, shard_proportional_draw
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fast = ShardedPriorityTree(1000, 8, 4, "cuda", kernel="pallas")
+    plain = ShardedPriorityTree(1000, 8, 4, "cuda", kernel="lax")
+    for _ in range(3):
+        leaf = torch.randint(0, 8000, (2048,), generator=g, device="cuda")
+        td = torch.randint(0, 20, (2048,), generator=g, device="cuda").float()
+        for t in (fast, plain):
+            t.seed_max(leaf[:256], None)
+            t.update(leaf, td)
+            t.scale(leaf[:64], 0.5)
+        assert torch.equal(fast.trees[:, 1:], plain.trees[:, 1:]) and float(fast.max_priority) == float(plain.max_priority)
+    # one scratch serves the four shards' scatters and comes back clean
+    assert fast._owner.shape == (1 << fast.depth,) and bool((fast._owner == -1).all())
+    r01 = torch.rand(4096, generator=g, device="cuda")
+    got = shard_proportional_draw(list(fast.trees), r01, depth=fast.depth, kernel="pallas")
+    want = shard_proportional_draw(list(plain.trees), r01, depth=plain.depth, kernel="lax")
+    for a, b in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -255,7 +255,9 @@ def test_helpers_match_jax():
         np.asarray(jax_pt.priority_from_td(jnp.asarray(td), 0.6, 1e-6)),
         rtol=W_RTOL,
     )
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the env-sharded tree and draw are ported (tests/test_torch_sharded_per.py);
+    # like every entry point, the tree lives on the card unless told otherwise
+    with pytest.raises(RuntimeError, match="CUDA"):
         port_pt.ShardedPriorityTree(8, 2, 2, None)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_pt.shard_proportional_draw()
+    t = port_pt.ShardedPriorityTree(8, 2, 2, "cpu")
+    assert len(port_pt.shard_proportional_draw(list(t.trees), torch.rand(4), depth=t.depth)) == 2
