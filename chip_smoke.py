@@ -50,8 +50,12 @@ at DV3-XL: a ``torch.profiler`` window over STEPS 64-row session steps
 (device time by kernel, the device's idle share, a chrome trace in
 ``chiprun_out/serve_trace.json``) and a longer selftest for rows/s and
 latency.  ``--profile-train [STEPS]`` prints the same breakdown for the XL
-train step (no trace: a train step's is too large to bring back).  Neither
-checks anything or prints an ``ok`` line.
+train step (no trace: a train step's is too large to bring back).
+``--gru-bench [--root DIR]`` builds only the GRU step kernel of the package
+under DIR (default: this checkout) and prints its check and timing rows, so
+that two checkouts can be timed in turns on one card, and the card's
+``mma.sync`` rates (phase ``mma_sync_peak``).  None of these prints
+an ``ok`` line.
 """
 
 from __future__ import annotations
@@ -179,14 +183,18 @@ PACMAN_OBS = {"rgb": (64, 64, 3)}
 PACMAN_ACTIONS = (9,)
 
 # H100 SXM (NVIDIA data sheet, dense): HBM3 rate, FP32 outside the tensor
-# cores, bf16 tensor cores.  The power limit printed beside the numbers says
-# whether the card ran at the 700 W these rates assume.
+# cores, bf16 and TF32 tensor cores.  The power limit printed beside the
+# numbers says whether the card ran at the 700 W these rates assume.
 MEM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 
-# kernel vs plain version: only the summation order differs (K = 5120
-# products summed before a LayerNorm), so f32 agrees to a few ulps of the
-# normalised parts; bf16 operands are rounded identically on both sides.
+# GRU step kernel vs plain version.  f32: the kernel multiplies in 3xTF32
+# (each operand split into a TF32 big and small part, three tensor-core
+# products), which leaves ~2^-22 of each product out and sums K = 5120 of
+# them in another order than the plain f32 product; that stays within a few
+# ulps of the normalised parts (tests/test_torch_gru_cell.py emulates it on
+# the CPU at K = 5120: 7.5e-7).  bf16: the operands are rounded identically
+# on both sides and their products are exact in f32; only the order differs.
 TOL = {"float32": 2e-5, "bfloat16": 2e-3}
 STATE_TOL = 1e-4  # recurrent state, served (kernel) vs replayed (plain), after all steps
 # GRU backward, autograd op vs autograd through the plain version: both
@@ -330,59 +338,111 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 def gru_bound_ms(batch: int, hidden: int, xdim: int, wdtype: str) -> tuple:
     """Least time for one step: every input read once and the output
     written once at the memory rate, against the product's 2*B*K*3H
-    operations at the operand type's peak plus ~12 f32 operations per
-    element of the (B, 3H) LayerNorm and gates."""
+    operations on the tensor cores (three TF32 passes for an f32-accurate
+    product of f32 W, one bf16 pass for bf16 W) plus ~12 f32 operations per
+    element of the (B, 3H) LayerNorm and gates.  Returns ``(ms, bound_by,
+    cuda_cores_ms)``; the last is the bound earlier slices stated, with the
+    f32 product on the CUDA cores (67 TFLOP/s)."""
     k, n = hidden + xdim, 3 * hidden
     wsize = 4 if wdtype == "float32" else 2
     nbytes = 4 * batch * hidden + 4 * batch * xdim + wsize * k * n + 8 * n + 4 * batch * hidden
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = (2 * batch * k * n / PEAK_FLOPS[wdtype] + 12 * batch * n / PEAK_FLOPS["float32"]) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    product = 2 * batch * k * n
+    t_gates = 12 * batch * n / PEAK_FLOPS["float32"] * 1e3
+    tc = 3 * product / PEAK_FLOPS["tf32"] if wdtype == "float32" else product / PEAK_FLOPS["bfloat16"]
+    t_ops = tc * 1e3 + t_gates
+    cuda_cores = max(t_bytes, product / PEAK_FLOPS[wdtype] * 1e3 + t_gates)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (cuda_cores,)
+
+
+# (H, X, W type, B): the serving path's B in {1, 7, 64} with f32 and bf16 W,
+# the XL training path's B = 16 (dynamic scan) and 1024 (imagination) in
+# f32, imagination with bf16 W, and DV3-S imagination (H = X = 512)
+GRU_SHAPES = (
+    [(4096, 1024, "float32", b) for b in (1, 7, 64, 16, 1024)]
+    + [(4096, 1024, "bfloat16", b) for b in (1, 7, 64, 1024)]
+    + [(512, 512, "float32", 1024)]
+)
 
 
 def check_gru_kernel(torch, gru_cell, gru_cell_plain) -> list:
-    """The kernel against its plain version at the XL widths (H=4096,
-    X=1024): the serving path's B in {1, 7, 64} with f32 and bf16 W, and the
-    training path's B = 16 (dynamic scan) and 1024 (imagination) in f32."""
-    hidden, xdim = 4096, 1024
-    g = torch.Generator(device="cuda").manual_seed(0)
-    w32 = torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5
-    gamma = 1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g)
-    beta = 0.1 * torch.randn(3 * hidden, device="cuda", generator=g)
+    """The kernel against its plain version at every shape of
+    ``GRU_SHAPES``, both LayerNorms; then its event and device times beside
+    the plain version's, ``torch.matmul``'s product alone and the bounds."""
     rows = []
-    for wdtype in ("float32", "bfloat16"):
-        w = w32 if wdtype == "float32" else w32.to(torch.bfloat16)
-        for batch in (1, 7, 64, 16, 1024) if wdtype == "float32" else (1, 7, 64):
-            h = torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g))
-            x = torch.randn(batch, xdim, device="cuda", generator=g)
-            err = 0.0
-            for two_pass in (True, False):
-                out = gru_cell(h, x, w, gamma, beta, two_pass=two_pass)
-                ref = gru_cell_plain(h, x, w, gamma, beta, two_pass=two_pass)
-                torch.cuda.synchronize()
-                if not bool(torch.isfinite(out).all()):
-                    raise AssertionError(f"gru_cell B={batch} {wdtype}: non-finite output")
-                err = max(err, float((out - ref).abs().max()))
-            if err > TOL[wdtype]:
-                raise AssertionError(f"gru_cell B={batch} {wdtype}: max abs err {err} > {TOL[wdtype]}")
-            inp = torch.cat([h, x], -1).to(w.dtype)
-            bound, bound_by = gru_bound_ms(batch, hidden, xdim, wdtype)
-            row = {
-                "batch": batch,
-                "wdtype": wdtype,
-                "max_abs_err": err,
-                "tol": TOL[wdtype],
-                "ms": time_ms(torch, lambda: gru_cell(h, x, w, gamma, beta)),
-                "plain_ms": time_ms(torch, lambda: gru_cell_plain(h, x, w, gamma, beta)),
-                "library_ms": time_ms(torch, lambda: torch.matmul(inp, w)),
-                "device_ms": device_ms(torch, lambda: gru_cell(h, x, w, gamma, beta)),
-                "bound_ms": bound,
-                "bound_by": bound_by,
+    weights = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for hidden, xdim, wdtype, batch in GRU_SHAPES:
+        if (hidden, xdim) not in weights:
+            weights.clear()
+            w32 = torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5
+            weights[(hidden, xdim)] = {
+                "float32": w32, "bfloat16": w32.to(torch.bfloat16),
+                "gamma": 1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+                "beta": 0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
             }
-            phase("gru_cell", **row)
-            rows.append(row)
-    del w32
+        ws = weights[(hidden, xdim)]
+        w, gamma, beta = ws[wdtype], ws["gamma"], ws["beta"]
+        h = torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g))
+        x = torch.randn(batch, xdim, device="cuda", generator=g)
+        err = 0.0
+        for two_pass in (True, False):
+            out = gru_cell(h, x, w, gamma, beta, two_pass=two_pass)
+            ref = gru_cell_plain(h, x, w, gamma, beta, two_pass=two_pass)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"gru_cell B={batch} H={hidden} {wdtype}: non-finite output")
+            err = max(err, float((out - ref).abs().max()))
+        if err > TOL[wdtype]:
+            raise AssertionError(f"gru_cell B={batch} H={hidden} {wdtype}: max abs err {err} > {TOL[wdtype]}")
+        inp = torch.cat([h, x], -1).to(w.dtype)
+        bound, bound_by, cuda_cores = gru_bound_ms(batch, hidden, xdim, wdtype)
+        row = {
+            "batch": batch,
+            "hidden": hidden,
+            "xdim": xdim,
+            "wdtype": wdtype,
+            "max_abs_err": err,
+            "tol": TOL[wdtype],
+            "ms": time_ms(torch, lambda: gru_cell(h, x, w, gamma, beta)),
+            "plain_ms": time_ms(torch, lambda: gru_cell_plain(h, x, w, gamma, beta)),
+            "library_ms": time_ms(torch, lambda: torch.matmul(inp, w)),
+            "device_ms": device_ms(torch, lambda: gru_cell(h, x, w, gamma, beta)),
+            "library_device_ms": device_ms(torch, lambda: torch.matmul(inp, w)),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "bound_cuda_cores_ms": cuda_cores,
+        }
+        phase("gru_cell", **row)
+        rows.append(row)
     return rows
+
+
+def gru_cell_sass(library) -> dict:
+    """``cuobjdump -sass`` of the built GRU step library: the HMMA (tensor
+    core) instructions of each product kernel.  Raises unless every
+    ``gru_mma`` instantiation has some, which shows the product runs on the
+    tensor cores."""
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        raise RuntimeError("cuobjdump not found: set CUDA_HOME or put it on PATH")
+    sass = subprocess.run([tool, "-sass", str(library.path)], capture_output=True, text=True, check=True, timeout=300)
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    products = {k: v for k, v in counts.items() if "gru_mma" in k}
+    if not products or min(products.values()) == 0:
+        raise AssertionError(f"no HMMA in some gru_mma kernels of {library.path}: {counts}")
+    return {"functions": len(counts), "gru_mma_kernels": len(products), "hmma": sum(products.values()),
+            "hmma_min_per_kernel": min(products.values())}
 
 
 def serve_sessions(cfg, obs_shapes, actions_dim, device, *, steps: int = 3) -> dict:
@@ -2004,13 +2064,96 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: dict, row: di
     }
 
 
+_MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// Independent mma.sync products on registers, 8 accumulators a warp: the
+// rate the tensor cores give the legacy (pre-wgmma) MMA path.
+template <int BF16>
+__global__ void mma_peak(float* out, int iters) {
+  float d[8][4] = {};
+  const uint32_t a0 = threadIdx.x, a1 = a0 + 1, a2 = a0 + 2, a3 = a0 + 3, b0 = a0 * 3, b1 = a0 * 5;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (BF16)
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+            : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      else
+        asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+            : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_peak_run(int bf16, float* out, int blocks, int iters) {
+  if (bf16) mma_peak<1><<<blocks, 256>>>(out, iters); else mma_peak<0><<<blocks, 256>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_sync_peak(torch) -> dict:
+    """TFLOP/s of independent ``mma.sync`` products (TF32 m16n8k8, bf16
+    m16n8k16) on 264 blocks of 8 warps: the ceiling of the GRU step's
+    product, which issues the same instructions."""
+    import ctypes
+
+    from sheeprl_tpu_torch.ops.build import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib_path = BUILD_DIR / "mma_peak.cu", BUILD_DIR / "mma_peak.so"
+    src.write_text(_MMA_PEAK_CU)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mma_peak_run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    blocks, iters = 2 * torch.cuda.get_device_properties(0).multi_processor_count, 20000
+    out = torch.empty(blocks * 256, device="cuda")
+    res = {}
+    for bf16, name, flop in ((0, "tf32", 2 * 16 * 8 * 8), (1, "bfloat16", 2 * 16 * 8 * 16)):
+        if lib.mma_peak_run(bf16, out.data_ptr(), blocks, 100) != 0:
+            raise RuntimeError("mma_peak launch failed")
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        lib.mma_peak_run(bf16, out.data_ptr(), blocks, iters)
+        end.record()
+        torch.cuda.synchronize()
+        res[f"{name}_tflops"] = blocks * 8 * iters * 8 * flop / (start.elapsed_time(end) * 1e-3) / 1e12
+    return res
+
+
+def gru_bench(torch) -> int:
+    """``--gru-bench [--root DIR]``: only the GRU step's check and timing rows
+    (``check_gru_kernel``), for the package under DIR (default: this
+    checkout).  Two checkouts compare on one card by alternating calls."""
+    from sheeprl_tpu_torch.ops import gru_cell as gru_ops
+
+    smi = nvidia_smi()
+    phase("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi, root=sys.path[0])
+    phase("build", **build_kernels([gru_ops.LIBRARY]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check_gru_kernel(torch, gru_ops.gru_cell, gru_ops.gru_cell_plain)
+    phase("mma_sync_peak", **mma_sync_peak(torch))
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "--root" in sys.argv:
+        root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
+    sys.path.insert(0, root)
+    if "--gru-bench" in sys.argv:
+        return gru_bench(torch)
     from sheeprl_tpu_torch.config import dotdict
     from sheeprl_tpu_torch.ops import gather as gather_ops
     from sheeprl_tpu_torch.ops import gru_cell as gru_ops
@@ -2029,6 +2172,7 @@ def main() -> int:
     phase("build", **build_kernels(
         [gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY, seq_ops.LIBRARY]
     ))
+    phase("gru_cell_sass", **gru_cell_sass(gru_ops.LIBRARY))
 
     if "--profile" in sys.argv:
         i = sys.argv.index("--profile")
@@ -2127,7 +2271,7 @@ def main() -> int:
     phase("purity", jax_modules=0)
 
     # the GRU row at the training path's largest shape (imagination, B = 1024)
-    main_row = next(r for r in gru_rows if r["batch"] == 1024 and r["wdtype"] == "float32")
+    main_row = next(r for r in gru_rows if r["batch"] == 1024 and r["hidden"] == 4096 and r["wdtype"] == "float32")
     kernels = [
         {
             "name": "gru_cell",
@@ -2144,7 +2288,14 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "device_ms": main_row["device_ms"],
+            "library_device_ms": main_row["library_device_ms"],
+            "bound_cuda_cores_ms": main_row["bound_cuda_cores_ms"],
             "shape": "B=1024, H=4096, X=1024, f32",
+            "by_shape": [
+                {k: r[k] for k in ("batch", "hidden", "wdtype", "ms", "device_ms", "plain_ms", "library_ms",
+                                   "library_device_ms", "bound_ms", "bound_cuda_cores_ms", "max_abs_err")}
+                for r in gru_rows
+            ],
         },
         {
             "name": "gather_windows",

@@ -154,15 +154,20 @@ def gru_cell_apply(
 
     ``cell.fused`` selects the LayerNorm of the JAX path it mirrors: the
     fused Pallas kernel's two-pass variance, or the flax cell's fast
-    variance.  Either way CPU tensors compute the plain version and CUDA
-    tensors run the hand-written kernel (``ops/gru_cell.py``)."""
+    variance, which under bf16 also rounds the product to bf16 before the
+    LayerNorm (``parts = inp.astype(bf16) @ kernel.astype(bf16)``).  Either
+    way CPU tensors compute the plain version and CUDA tensors run the
+    hand-written kernel (``ops/gru_cell.py``)."""
     lead = h.shape[:-1]
     h2 = h.reshape(-1, h.shape[-1]).float().contiguous()
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     w = cell.weight if cell.dtype == torch.float32 else cell.weight.to(cell.dtype)
     if x2.dtype not in (torch.float32, w.dtype):
         x2 = x2.float()
-    out = cell.impl(h2, x2, w.contiguous(), cell.norm.weight, cell.norm.bias, eps=cell.norm.eps, two_pass=cell.fused)
+    out = cell.impl(
+        h2, x2, w.contiguous(), cell.norm.weight, cell.norm.bias, eps=cell.norm.eps, two_pass=cell.fused,
+        round_parts=not cell.fused and cell.dtype == torch.bfloat16,
+    )
     return out.reshape(*lead, -1)
 
 

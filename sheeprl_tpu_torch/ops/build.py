@@ -48,8 +48,9 @@ class CudaLibrary:
 
     ``bind`` sets ``argtypes``/``restype`` on the loaded library.  After
     :meth:`load`, ``log`` holds the compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel) and ``seconds`` the
-    time the build took (0 when the library was already built)."""
+    registers, shared memory and spills per kernel), ``seconds`` the
+    time the build took (0 when the library was already built) and
+    ``path`` the built library."""
 
     def __init__(self, source: str, stem: str, bind: Callable[[ctypes.CDLL], None]):
         self.source = CSRC / source
@@ -59,6 +60,7 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self.log = ""
         self.seconds = 0.0
+        self.path: Optional[Path] = None
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -83,5 +85,6 @@ class CudaLibrary:
             self.seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(target))
             self._bind(lib)
+            self.path = target
             self._lib = lib
             return lib

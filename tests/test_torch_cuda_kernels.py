@@ -13,28 +13,100 @@ import torch
 from sheeprl_tpu_torch.ops.gru_cell import gru_cell, gru_cell_plain
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("batch,hidden,xdim", [(1, 4096, 1024), (7, 4096, 1024), (64, 4096, 1024), (3, 40, 24)])
-@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain(batch, hidden, xdim, wdtype):
-    """The CUDA kernel against its plain version on the card: at the XL
-    widths the serving path gives it (H=4096, X=1024), and at a width that
-    leaves most of a column block and of a K chunk empty."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(batch)
+GRU_SHAPES = [
+    (1, 4096, 1024), (7, 4096, 1024), (64, 4096, 1024), (3, 40, 24),
+    (1024, 4096, 1024), (1024, 512, 512), (100, 4096, 1024), (129, 512, 512),
+]
+
+
+def _gru_inputs(batch, hidden, xdim, wdtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
     h = torch.randn(batch, hidden, device="cuda", generator=g)
     x = torch.randn(batch, xdim, device="cuda", generator=g)
     w = (torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5).to(getattr(torch, wdtype))
     gamma = 1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g)
     beta = 0.1 * torch.randn(3 * hidden, device="cuda", generator=g)
+    return h, x, w, gamma, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden,xdim", GRU_SHAPES)
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain(batch, hidden, xdim, wdtype):
+    """The CUDA kernel against its plain version on the card: at the XL
+    widths the serving path gives it (H=4096, X=1024, B = 1, 7, 64), at
+    imagination's B = 1024 at XL and DV3-S (H = X = 512) widths, at batches
+    that leave part of a 128- or 64-row tile empty (100, 129), and at a
+    width (3, 40, 24) where N = 120 leaves part of a 128-column tile empty
+    and K = 64 has a ragged h and x segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, x, w, gamma, beta = _gru_inputs(batch, hidden, xdim, wdtype, batch)
     tol = 2e-5 if wdtype == "float32" else 2e-3
     for two_pass in (True, False):
         out = gru_cell(h, x, w, gamma, beta, two_pass=two_pass)
         ref = gru_cell_plain(h, x, w, gamma, beta, two_pass=two_pass)
         torch.cuda.synchronize()
         assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden,xdim", [(64, 4096, 1024), (1024, 512, 512), (3, 40, 24)])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_cuda_kernel_rounds_parts_like_plain(batch, hidden, xdim, xdtype):
+    """``round_parts`` (the unfused cell under bf16) on the card: bf16 W,
+    the product rounded to bf16 before the fast-variance LayerNorm, within
+    the bf16 tolerance (2e-3) of the plain version.  The inputs lie on a
+    grid (multiples of 1/8 for h and x, 1/64 for W, |values| <= 1) where
+    every partial sum of the product is exact in f32, so both sides round
+    the same sums; on random inputs a sum that the two summation orders
+    put on either side of a rounding boundary moves its output by a bf16
+    ulp of its normalised part, more than the tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(batch)
+    h = torch.randint(-8, 9, (batch, hidden), device="cuda", generator=g).float() / 8
+    x = (torch.randint(-8, 9, (batch, xdim), device="cuda", generator=g).float() / 8).to(getattr(torch, xdtype))
+    w = (torch.randint(-64, 65, (hidden + xdim, 3 * hidden), device="cuda", generator=g).float() / 64).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g)
+    beta = 0.1 * torch.randn(3 * hidden, device="cuda", generator=g)
+    out = gru_cell(h, x, w, gamma, beta, two_pass=False, round_parts=True)
+    ref = gru_cell_plain(h, x, w, gamma, beta, two_pass=False, round_parts=True)
+    unrounded = gru_cell_plain(h, x, w, gamma, beta, two_pass=False)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    assert err <= 2e-3
+    assert err < 0.1 * (unrounded - ref).abs().max().item()  # far closer to the rounded step than the rounding moves it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden,xdim,wdtype", [(1024, 4096, 1024, "float32"), (16, 4096, 1024, "float32"), (64, 4096, 1024, "bfloat16"), (129, 512, 512, "float32")])
+def test_cuda_kernel_is_deterministic(batch, hidden, xdim, wdtype):
+    """Two calls on the same inputs give the same bytes: no atomics, the
+    K slices summed in a fixed order (B = 16 and 64 split K, B = 1024 at XL
+    does not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _gru_inputs(batch, hidden, xdim, wdtype, 7)
+    first = gru_cell(*args)
+    second = gru_cell(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_raises_on_what_it_does_not_take():
+    """Rows that 16-byte copies cannot stage raise before any launch: X not
+    a multiple of 4, and H or X not a multiple of 8 for bf16 operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    before = gru_cell.launches
+    for hidden, xdim, wdtype, xdtype in ((8, 6, "float32", "float32"), (12, 8, "bfloat16", "float32"), (8, 12, "bfloat16", "bfloat16")):
+        h, x, w, gamma, beta = _gru_inputs(2, hidden, xdim, wdtype, 0)
+        with pytest.raises(ValueError):
+            gru_cell(h, x.to(getattr(torch, xdtype)), w, gamma, beta)
+    assert gru_cell.launches == before
 
 
 @pytest.mark.cuda
