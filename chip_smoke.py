@@ -54,8 +54,10 @@ train step (no trace: a train step's is too large to bring back).
 ``--gru-bench [--root DIR]`` builds only the GRU step kernel of the package
 under DIR (default: this checkout) and prints its check and timing rows, so
 that two checkouts can be timed in turns on one card, and the card's
-``mma.sync`` rates (phase ``mma_sync_peak``).  None of these prints
-an ``ok`` line.
+``mma.sync`` rates (phase ``mma_sync_peak``).  ``--tree-bench DIR`` runs
+the sum-tree kernels' checks and rows of the checkout under DIR and of this
+one in turns, each by its own script (``chiprun_out/tree_bench.json``).
+None of these prints an ``ok`` line.
 """
 
 from __future__ import annotations
@@ -314,10 +316,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3, ops: bool = False):
     """Device time per call: the kernels ``fn`` launches, summed over a
     ``torch.profiler`` window of ``iters`` calls.  Unlike :func:`time_ms` it
-    leaves out the host's time between launches."""
+    leaves out the host's time between launches.  With ``ops``, also the
+    device operations (kernels, fills, copies) a call makes in that window."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -327,12 +330,74 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, count = 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(ev, "self_device_time_total", None)
             total += ev.self_cuda_time_total if t is None else t
-    return total / 1e3 / iters
+            count += ev.count
+    return (total / 1e3 / iters, count / iters) if ops else total / 1e3 / iters
+
+
+def host_us(torch, fn, calls: int = 1000, batches: int = 5) -> float:
+    """The host's time to enqueue one call of ``fn``: a host clock over
+    ``calls`` calls with no synchronise between them, the median of
+    ``batches`` such batches (the card's host is shared: one batch can take
+    half as long again as the next)."""
+    fn()
+    torch.cuda.synchronize()
+    per_batch = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_batch.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(per_batch)[batches // 2]
+
+
+_LAUNCH_FLOOR_SOURCE = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_LAUNCH_FLOOR = []
+
+
+def launch_floor_library():
+    """An empty kernel behind a plain C entry, written next to the port's
+    built libraries and built and loaded as they are (``CudaLibrary``: the
+    same ``nvcc`` flags, ``ctypes``): the launch floor of a wrapper call."""
+    import ctypes
+
+    from sheeprl_tpu_torch.ops.build import BUILD_DIR, CudaLibrary
+
+    if not _LAUNCH_FLOOR:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = BUILD_DIR / "launch_floor.cu"
+        src.write_text(_LAUNCH_FLOOR_SOURCE)
+
+        def bind(lib):
+            lib.launch_empty.argtypes = [ctypes.c_void_p]
+            lib.launch_empty.restype = ctypes.c_int
+
+        _LAUNCH_FLOOR.append(CudaLibrary(str(src), "liblaunch_floor", bind))
+    return _LAUNCH_FLOOR[0]
+
+
+def launch_floor_ms(torch) -> float:
+    """Event time a call of an empty kernel launched through ``ctypes``
+    (:func:`launch_floor_library`): what any wrapper call of that route
+    costs at least."""
+    lib = launch_floor_library().load()
+
+    def launch():
+        if lib.launch_empty(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+
+    return time_ms(torch, launch, iters=200)
 
 
 def gru_bound_ms(batch: int, hidden: int, xdim: int, wdtype: str) -> tuple:
@@ -1016,6 +1081,15 @@ def descent_bytes(torch, leaf, depth: int, n_excl: int) -> int:
     return 32 * sectors + 12 * leaf.numel() + 5 * n_excl
 
 
+def descent_ops(n: int, depth: int, n_excl: int) -> int:
+    """The operations a draw of ``n`` needs: a comparison, a subtraction and
+    a select at each of ``depth`` levels a draw, and each exclusion's mass
+    taken off its ``depth`` ancestors once (an add and a subtraction).
+    Scanning every exclusion at every level of every draw is one design's
+    cost, not work the function needs."""
+    return 3 * n * depth + 2 * n_excl * depth
+
+
 def write_bytes(torch, leaf, active, depth: int, update: bool) -> int:
     """What a write reads and writes: 4 bytes for every distinct node its
     active lanes' paths write (leaves and ancestors) or read (the children
@@ -1041,7 +1115,10 @@ def check_sum_tree_kernels(torch) -> dict:
     identical) and on random f32 ones (flips counted; none without
     exclusions); writes with equal duplicates, unequal active duplicates and
     inactive lanes (slots 1.. bit-equal); an update (tree and running max
-    equal).  Returns one timing row per kernel at its main-path shape."""
+    equal).  Returns one timing row per kernel at its main-path shape.
+    Each sample row also has the wrapper's host time a call (``host_us``),
+    the device operations a call (``device_ops``) and the launch floor of
+    the ctypes route.  The draws take a kept scratch, as the trees pass it."""
     import numpy as np
 
     from sheeprl_tpu_torch.ops import per
@@ -1057,15 +1134,17 @@ def check_sum_tree_kernels(torch) -> dict:
     n = TREE_DRAWS
     r01 = torch.rand(n, generator=g, device="cuda")
     rows = {}
+    floor_ms = launch_floor_ms(torch)
     # 2016 = 63 x 32 envs: DV3's prioritized starts at L = 64 on 32 envs,
     # more exclusions than one shared-memory chunk holds
     for n_excl in (0, 4, 63, 2016):
         excl = None
         if n_excl:
             excl = torch.from_numpy(rng.choice(TREE_LEAVES, n_excl, replace=False).astype(np.int32)).cuda()
+        kw = {"scratch": per.draw_scratch(depth, n_excl, "cuda")}
         checks = {}
         for label, t in trees.items():
-            leaf, w = per.sum_tree_sample(t.tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
+            leaf, w = per.sum_tree_sample(t.tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl, **kw)
             leaf_p, w_p = per.sum_tree_sample_plain(t.tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
             torch.cuda.synchronize()
             same = leaf == leaf_p
@@ -1084,7 +1163,7 @@ def check_sum_tree_kernels(torch) -> dict:
         leaves_t = tree[p : p + TREE_LEAVES]
 
         def kernel():
-            return per.sum_tree_sample(tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
+            return per.sum_tree_sample(tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl, **kw)
 
         def plain():
             return per.sum_tree_sample_plain(tree, r01, 0.4, TREE_LEAVES, depth=depth, exclude_idx=excl)
@@ -1095,12 +1174,14 @@ def check_sum_tree_kernels(torch) -> dict:
 
         leaf = kernel()[0]
         nbytes = descent_bytes(torch, leaf, depth, n_excl)
-        b_ms, b_by = bound(nbytes, n * depth * (3 + 2 * n_excl))
+        b_ms, b_by = bound(nbytes, descent_ops(n, depth, n_excl))
+        dev_ms, dev_ops = device_ms(torch, kernel, ops=True)
         row = {
             "draws": n, "leaves": TREE_LEAVES, "exclusions": n_excl, "checks": checks,
             "max_abs_err": max(c["max_abs_err_w"] for c in checks.values()),
             "ms": time_ms(torch, kernel, iters=50), "plain_ms": time_ms(torch, plain, iters=10),
-            "library_ms": time_ms(torch, library, iters=50), "device_ms": device_ms(torch, kernel),
+            "library_ms": time_ms(torch, library, iters=50), "device_ms": dev_ms, "device_ops": dev_ops,
+            "host_us": host_us(torch, kernel), "launch_floor_ms": floor_ms,
             "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
         }
         phase("sum_tree_sample", **row)
@@ -1162,7 +1243,8 @@ def check_sharded_tree_kernels(torch) -> dict:
     duplicates, inactive lanes and lanes of the other three shards, at 256,
     1,024 (a flush of 64 rows of 16 envs) and 65,536 lanes (a TD update)
     (heaps identical from slot 1, candidate max exact, the owner scratch
-    clean).  Returns timing rows at the path's shapes."""
+    clean).  Returns timing rows at the path's shapes; the descend rows have
+    the sample rows' extra keys."""
     import numpy as np
 
     from sheeprl_tpu_torch.ops import per
@@ -1179,16 +1261,18 @@ def check_sharded_tree_kernels(torch) -> dict:
     r01 = torch.rand(n, generator=g, device="cuda")
     one_less = torch.tensor(1.0 - 1e-7, device="cuda")
     rows = {}
+    floor_ms = launch_floor_ms(torch)
     for n_excl in (0, 1, 4, 63, 252, 2016):
         excl = None
         if n_excl:
             excl = torch.from_numpy(rng.choice(SHARD_LEAVES, n_excl, replace=False).astype(np.int32)).cuda()
+        kw = {"scratch": per.draw_scratch(depth, n_excl, "cuda")}
         checks, u_by = {}, {}
         for label, tree in trees.items():
             m_local = tree[1] - (tree[excl.long() + p].sum() if n_excl else 0.0)
             u = torch.clamp(torch.minimum(r01, one_less) * m_local, torch.zeros((), device="cuda"), m_local * one_less)
             u_by[label] = u
-            leaf, mass = per.sum_tree_descend(tree, u, depth=depth, exclude_idx=excl)
+            leaf, mass = per.sum_tree_descend(tree, u, depth=depth, exclude_idx=excl, **kw)
             leaf_p, mass_p = per.sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=excl)
             torch.cuda.synchronize()
             same = leaf == leaf_p
@@ -1206,7 +1290,7 @@ def check_sharded_tree_kernels(torch) -> dict:
         leaves_t = tree[p : p + SHARD_LEAVES]
 
         def kernel():
-            return per.sum_tree_descend(tree, u, depth=depth, exclude_idx=excl)
+            return per.sum_tree_descend(tree, u, depth=depth, exclude_idx=excl, **kw)
 
         def plain():
             return per.sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=excl)
@@ -1216,11 +1300,13 @@ def check_sharded_tree_kernels(torch) -> dict:
 
         leaf = kernel()[0]
         nbytes = descent_bytes(torch, leaf, depth, n_excl)
-        b_ms, b_by = bound(nbytes, n * depth * (3 + 2 * n_excl))
+        b_ms, b_by = bound(nbytes, descent_ops(n, depth, n_excl))
+        dev_ms, dev_ops = device_ms(torch, kernel, ops=True)
         row = {
             "draws": n, "leaves": SHARD_LEAVES, "depth": depth, "exclusions": n_excl, "checks": checks, "max_abs_err": 0.0,
             "ms": time_ms(torch, kernel, iters=50), "plain_ms": time_ms(torch, plain, iters=10),
-            "library_ms": time_ms(torch, library, iters=50), "device_ms": device_ms(torch, kernel),
+            "library_ms": time_ms(torch, library, iters=50), "device_ms": dev_ms, "device_ops": dev_ops,
+            "host_us": host_us(torch, kernel), "launch_floor_ms": floor_ms,
             "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
         }
         phase("sum_tree_descend", **row)
@@ -2142,6 +2228,59 @@ def gru_bench(torch) -> int:
     return 0
 
 
+# One turn of --tree-bench: the draw kernels' checks and rows of the
+# checkout at argv[1], by that checkout's own chip_smoke.py.
+_TREE_TURN = """
+import sys
+import torch
+root = sys.argv[1]
+sys.path.insert(0, root)
+import chip_smoke as smoke
+from sheeprl_tpu_torch.ops import per
+smoke.phase("device", name=torch.cuda.get_device_name(0), nvidia_smi=smoke.nvidia_smi(), root=root)
+smoke.phase("build", **smoke.build_kernels([per.LIBRARY]))
+smoke.check_sum_tree_kernels(torch)
+smoke.check_sharded_tree_kernels(torch)
+print(smoke.nvidia_smi(), flush=True)
+"""
+
+
+def tree_bench(parent: str) -> int:
+    """``--tree-bench DIR``: the sum-tree kernels' checks and rows of the
+    checkout under DIR (the parent, unpacked with ``git archive``) and of
+    this one in turns, parent, this, this, parent, each by its own
+    ``chip_smoke.py`` in a process of its own on the one card.  Each turn's
+    output goes to ``chiprun_out/tree_bench_<turn>.log`` and its draw rows
+    (``sum_tree_sample``, ``sum_tree_descend``) to
+    ``chiprun_out/tree_bench.json``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    turns = []
+    for k, (label, root) in enumerate((("parent", parent), ("change", here), ("change", here), ("parent", parent))):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", _TREE_TURN, root], capture_output=True, text=True, timeout=900)
+        with open(os.path.join(out_dir, f"tree_bench_{k}_{label}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the tree turn under {root} failed ({proc.returncode})")
+        rows = {}
+        for ln in proc.stdout.splitlines():
+            tag, _, body = ln.partition(" ")
+            if tag in ("[sum_tree_sample]", "[sum_tree_descend]"):
+                row = json.loads(body)
+                row.pop("checks", None)
+                rows[f"{tag[1:-1]}_e{row['exclusions']}"] = row
+        smi = proc.stdout.strip().splitlines()[-1]
+        turns.append({"turn": label, "root": root, "nvidia_smi": smi, "rows": rows})
+        phase("tree_bench", turn=label, root=root, nvidia_smi=smi, rows=rows)
+    with open(os.path.join(out_dir, "tree_bench.json"), "w") as f:
+        json.dump(turns, f, indent=1)
+    print(turns[0]["nvidia_smi"], flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2154,6 +2293,8 @@ def main() -> int:
     sys.path.insert(0, root)
     if "--gru-bench" in sys.argv:
         return gru_bench(torch)
+    if "--tree-bench" in sys.argv:
+        return tree_bench(sys.argv[sys.argv.index("--tree-bench") + 1])
     from sheeprl_tpu_torch.config import dotdict
     from sheeprl_tpu_torch.ops import gather as gather_ops
     from sheeprl_tpu_torch.ops import gru_cell as gru_ops
@@ -2170,7 +2311,8 @@ def main() -> int:
 
     # 2. build: every kernel of both paths, side by side
     phase("build", **build_kernels(
-        [gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY, seq_ops.LIBRARY]
+        [gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY, seq_ops.LIBRARY,
+         launch_floor_library()]
     ))
     phase("gru_cell_sass", **gru_cell_sass(gru_ops.LIBRARY))
 
@@ -2327,7 +2469,9 @@ def main() -> int:
         _kernel_entry("sum_tree_sample", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:171",
                       {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"]},
                       tree_rows["sample_e0"], f"{TREE_DRAWS} draws, {TREE_LEAVES} leaves, no exclusions",
+                      **{k: tree_rows["sample_e0"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
                       ms_e63=tree_rows["sample_e63"]["ms"], bound_ms_e63=tree_rows["sample_e63"]["bound_ms"],
+                      device_ms_e63=tree_rows["sample_e63"]["device_ms"], device_ops_e63=tree_rows["sample_e63"]["device_ops"],
                       flips_f32_e63=tree_rows["sample_e63"]["checks"]["f32"]["flips"],
                       ms_e2016=tree_rows["sample_e2016"]["ms"], device_ms_e2016=tree_rows["sample_e2016"]["device_ms"],
                       bound_ms_e2016=tree_rows["sample_e2016"]["bound_ms"],
@@ -2344,6 +2488,7 @@ def main() -> int:
         _kernel_entry("sum_tree_descend", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:224",
                       {"sac_sharded": sharded["launches"]["sum_tree_descend"]}, shard_rows["descend_e4"],
                       f"{SHARDED_DRAWS} draws, one shard's {SHARD_LEAVES}-leaf sub-tree, 4 exclusions",
+                      **{k: shard_rows["descend_e4"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
                       ms_e0=shard_rows["descend_e0"]["ms"], device_ms_e0=shard_rows["descend_e0"]["device_ms"],
                       bound_ms_e0=shard_rows["descend_e0"]["bound_ms"],
                       ms_e252=shard_rows["descend_e252"]["ms"], device_ms_e252=shard_rows["descend_e252"]["device_ms"],

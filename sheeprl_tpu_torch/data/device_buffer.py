@@ -63,17 +63,47 @@ __all__ = [
     "DeviceReplayCache",
     "ShardedDeviceReplayCache",
     "device_cache_setting",
+    "head_exclusions",
     "maybe_create_for",
     "maybe_create_for_transitions",
     "sample_transition_rows",
     "sample_window_starts",
     "sequence_batches",
+    "upload",
+    "window_exclusions",
 ]
 
 
 def _store_dtype(dt) -> np.dtype:
     dt = np.dtype(dt)
     return np.dtype(np.float32) if dt == np.float64 else dt
+
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without synchronising the stream: on a card
+    it is staged in pinned memory and copied asynchronously (PyTorch's caching
+    host allocator keeps the pinned block until the copy has run); a blocking
+    copy from pageable memory would wait for every queued kernel."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def window_exclusions(pos: np.ndarray, capacity: int, seq_len: int) -> Optional[np.ndarray]:
+    """The cells that cannot start a window of ``seq_len``: the L - 1 rows
+    before each env's write head, offset-major ((L - 1) x n_envs), as int32
+    leaves ``row * n_envs + env`` of a tree over ``len(pos)`` envs."""
+    if seq_len <= 1:
+        return None
+    n_envs = len(pos)
+    inv_rows = (pos[None, :] - np.arange(1, seq_len)[:, None]) % capacity  # (L-1, n_envs)
+    return (inv_rows * n_envs + np.arange(n_envs)[None, :]).reshape(-1).astype(np.int32)
+
+
+def head_exclusions(pos: np.ndarray, capacity: int) -> np.ndarray:
+    """Each env's newest row (its successor is stale), as int32 leaves."""
+    return (((pos - 1) % capacity) * len(pos) + np.arange(len(pos))).astype(np.int32)
 
 
 def device_cache_setting(cfg) -> str:
@@ -560,11 +590,8 @@ class DeviceReplayCache:
         self._check_tree()
         flat = n_samples * batch_size
         n_live = int(np.maximum(self._filled - seq_len + 1, 0).sum())
-        excl = None
-        if seq_len > 1:
-            offs = np.arange(1, seq_len)
-            inv_rows = (self._pos[None, :] - offs[:, None]) % self.capacity  # (L-1, n_envs)
-            excl = torch.from_numpy((inv_rows * self.n_envs + np.arange(self.n_envs)[None, :]).reshape(-1)).to(self.device)
+        excl = window_exclusions(self._pos, self.capacity, seq_len)
+        excl = None if excl is None else upload(excl, self.device)
         leaves, _ = self._tree.sample(flat, beta=beta, count=n_live, exclude_idx=excl, generator=generator, r01=r01)
         starts = (leaves // self.n_envs).to(torch.int32).contiguous()
         envs = (leaves % self.n_envs).to(torch.int32).contiguous()
@@ -636,10 +663,7 @@ class DeviceReplayCache:
         flat = n_samples * batch_size
         next_keys = tuple(obs_keys) if sample_next_obs else ()
         n_live = int(self._filled.sum()) - (self.n_envs if next_keys else 0)
-        excl = None
-        if next_keys:
-            head_rows = (self._pos - 1) % self.capacity
-            excl = torch.from_numpy(head_rows * self.n_envs + np.arange(self.n_envs)).to(self.device)
+        excl = upload(head_exclusions(self._pos, self.capacity), self.device) if next_keys else None
         leaves, w = self._tree.sample(flat, beta=beta, count=n_live, exclude_idx=excl, generator=generator, r01=r01)
         rows = (leaves // self.n_envs).to(torch.int32).contiguous()
         envs = (leaves % self.n_envs).to(torch.int32).contiguous()
@@ -837,17 +861,14 @@ class ShardedDeviceReplayCache(DeviceReplayCache):
     def _shard_exclusions(self, r: int, seq_len: Optional[int], next_keys) -> Optional[torch.Tensor]:
         """Shard ``r``'s local sampling exclusions: the L - 1 rows before each
         env's head (window starts), or each env's head row (next observations)."""
-        nl = self.n_local_envs
         pos_l = self._pos[self._cols(r)]
         if seq_len is not None and seq_len > 1:
-            offs = np.arange(1, seq_len)
-            inv_rows = (pos_l[None, :] - offs[:, None]) % self.capacity  # (L-1, n_local)
-            excl = (inv_rows * nl + np.arange(nl)[None, :]).reshape(-1)
+            excl = window_exclusions(pos_l, self.capacity, seq_len)
         elif seq_len is None and next_keys:
-            excl = ((pos_l - 1) % self.capacity) * nl + np.arange(nl)
+            excl = head_exclusions(pos_l, self.capacity)
         else:
             return None
-        return torch.from_numpy(excl.astype(np.int32)).to(self.device)
+        return upload(excl, self.device)
 
     def _sharded_per(self, n_samples, batch_size, seq_len, next_keys, generator, r01, beta):
         """``_build_sharded_per``'s body for every shard (``device_buffer.py:1337-1438``):
@@ -865,7 +886,8 @@ class ShardedDeviceReplayCache(DeviceReplayCache):
         trees = list(self._tree.trees)
         if self.kernel == "pallas":
             draws = shard_proportional_draw(
-                trees, r01, depth=depth, kernel="pallas", exclude_idx=None if excl[0] is None else excl
+                trees, r01, depth=depth, kernel="pallas", exclude_idx=None if excl[0] is None else excl,
+                scratch=None if excl[0] is None or self.device.type != "cuda" else self._tree.draw_scratch(excl[0].numel()),
             )
         else:
             trees = [t if e is None else _tree_zeroed_local(t, e, depth) for t, e in zip(trees, excl)]
@@ -896,11 +918,12 @@ class ShardedDeviceReplayCache(DeviceReplayCache):
             zf = torch.zeros((), device=self.device)
             mass_global = psum([torch.where(own, mass, zf) for _, mass, own, _ in draws])
             live = [float(self._filled[self._cols(r)].sum() - (nl if next_keys else 0)) for r in range(self._n_dev)]
-            n_live = psum([torch.tensor(v, dtype=torch.float32, device=self.device) for v in live])
+            # made on the device (a fill), not copied from the host: no stream sync
+            n_live = psum([torch.full((), v, dtype=torch.float32, device=self.device) for v in live])
             total = draws[0][3]
             tiny = torch.finfo(torch.float32).tiny
             probs = torch.clamp_min(mass_global, tiny) / torch.clamp_min(total, tiny)
-            w = (torch.clamp_min(n_live, 1.0) * probs) ** (-torch.tensor(float(beta), dtype=torch.float32, device=self.device))
+            w = (torch.clamp_min(n_live, 1.0) * probs) ** (-torch.full((), float(beta), dtype=torch.float32, device=self.device))
             out["is_weights"] = (w / w.max()).reshape(n_samples, batch_size, 1)
         leaves = psum(cells).to(torch.int32).reshape(n_samples, batch_size)
         return out, leaves

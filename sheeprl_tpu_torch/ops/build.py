@@ -63,6 +63,9 @@ class CudaLibrary:
         self.path: Optional[Path] = None
 
     def load(self) -> ctypes.CDLL:
+        lib = self._lib  # loaded once: the wrappers' per-call path takes no lock
+        if lib is not None:
+            return lib
         with self._lock:
             if self._lib is not None:
                 return self._lib

@@ -28,6 +28,15 @@ on entry and again on exit: a caller that writes often keeps one from
 :func:`owner_scratch` and passes it as ``owner`` (``PriorityTree`` does), so a
 call costs the lanes' paths and no P-sized fill.
 
+The draws (#5, #8) take a ``scratch`` from :func:`draw_scratch`, kept by
+the caller in the same way: the blocks' maxima of a sample's weights, then
+room for the exclusions' pre-pass (the corrected top of the tree and the
+exclusions sorted by bucket).  Every call writes what it reads there, so a
+scratch needs no clearing; its size is the kernel library's, and the
+library refuses a smaller one.  A draw is one launch without exclusions
+and two with them (the pre-pass, then the draws).  Without a ``scratch``
+the wrapper makes one for the call (an allocation, no fill).
+
 Duplicates: a leaf that several active lanes write takes the value of the
 last of them (the highest lane index), which is what XLA's scatter keeps on
 the CPU; inactive lanes write nothing.  JAX parks an inactive lane at heap
@@ -49,6 +58,7 @@ from sheeprl_tpu_torch.ops.build import CudaLibrary
 
 __all__ = [
     "LIBRARY",
+    "draw_scratch",
     "owner_scratch",
     "sum_tree_descend",
     "sum_tree_descend_plain",
@@ -65,11 +75,14 @@ __all__ = [
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sheeprl_sum_tree_sample.argtypes = [ptr, i32, ptr, i32, f32, f32, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+    size = ctypes.c_size_t
+    lib.sheeprl_sum_tree_draw_scratch_bytes.argtypes = [i32, i32]
+    lib.sheeprl_sum_tree_draw_scratch_bytes.restype = size
+    lib.sheeprl_sum_tree_sample.argtypes = [ptr, i32, ptr, i32, f32, f32, ptr, ptr, i32, ptr, ptr, ptr, size, ptr]
     lib.sheeprl_sum_tree_sample.restype = i32
     lib.sheeprl_sum_tree_write.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr]
     lib.sheeprl_sum_tree_write.restype = i32
-    lib.sheeprl_sum_tree_descend.argtypes = [ptr, i32, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr]
+    lib.sheeprl_sum_tree_descend.argtypes = [ptr, i32, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, size, ptr]
     lib.sheeprl_sum_tree_descend.restype = i32
     lib.sheeprl_sum_tree_scatter.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
     lib.sheeprl_sum_tree_scatter.restype = i32
@@ -78,6 +91,16 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("sum_tree.cu", "libsheeprl_sum_tree", _bind)
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+def draw_scratch(depth: int, n_excl: int, device) -> torch.Tensor:
+    """The draws' scratch for a tree of ``depth`` and up to ``n_excl``
+    exclusions, of the size the kernel library gives: int32, uninitialised
+    (every call writes what it reads)."""
+    nbytes = LIBRARY.load().sheeprl_sum_tree_draw_scratch_bytes(int(depth), int(n_excl))
+    if not nbytes:
+        raise ValueError(f"no draw scratch for a tree of depth {depth} with {n_excl} exclusions")
+    return torch.empty((nbytes + 3) // 4, dtype=torch.int32, device=device)
 
 
 def _excl_args(tree: torch.Tensor, exclude_idx, exclude_active) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -207,33 +230,106 @@ def _device(tree: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {tree.device}")
 
 
+def _device_is_cpu(tree: torch.Tensor, name: str) -> None:
+    """For a tree that is not on a card: the plain version runs on the CPU
+    only."""
+    if tree.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for device {tree.device}")
+
+
+def _on(x, tree: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether ``x`` is a contiguous ``dtype`` tensor on the tree's card: then
+    the kernels take it as it is (flat in memory, whatever its shape)."""
+    return (
+        isinstance(x, torch.Tensor) and x.dtype is dtype and x.is_cuda and x.get_device() == tree.get_device()
+        and x.is_contiguous()
+    )
+
+
+def _f32_on(x, tree: torch.Tensor) -> torch.Tensor:
+    """``x`` as contiguous f32 on the tree's device."""
+    if _on(x, tree, torch.float32):
+        return x
+    return torch.as_tensor(x, device=tree.device).to(torch.float32).reshape(-1).contiguous()
+
+
+def _excl_kernel_args(tree: torch.Tensor, exclude_idx, exclude_active):
+    """(excl, eact, E) for the kernels: int32 and bool, contiguous, on the
+    tree's device (as given when they are); eact None means all active."""
+    if exclude_idx is None:
+        return None, None, 0
+    excl = exclude_idx
+    if not _on(excl, tree, torch.int32):
+        excl = torch.as_tensor(excl, device=tree.device).reshape(-1).to(torch.int32).contiguous()
+    eact = exclude_active
+    if eact is not None:
+        if not _on(eact, tree, torch.bool):
+            eact = torch.as_tensor(eact, device=tree.device).reshape(-1).to(torch.bool).contiguous()
+        if eact.numel() != excl.numel():
+            raise ValueError(f"{excl.numel()} exclusions, {eact.numel()} flags")
+    return excl, eact, excl.numel()
+
+
+def _scratch_for(scratch, tree: torch.Tensor, depth: int, n_excl: int, sample: bool, name: str):
+    """The call's draw scratch: the caller's (its size is checked by the
+    library), one made for it, or None where the call needs none."""
+    if scratch is None:
+        return draw_scratch(depth, n_excl, tree.device) if sample or n_excl else None
+    if not _on(scratch, tree, torch.int32):
+        raise ValueError(f"{name}: scratch must be contiguous int32 on {tree.device} (draw_scratch)")
+    return scratch
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(tree: torch.Tensor) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(tree.get_device())
+    return torch.cuda.current_stream(tree.device).cuda_stream
+
+
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _launched(err: int, tree: torch.Tensor, name: str, scratch, depth: int, n_excl: int) -> None:
+    if err == 0:
+        return
+    if tree.data_ptr() % 16 or (scratch is not None and scratch.data_ptr() % 16):
+        raise ValueError(f"{name}: the tree and the scratch must start on a 16-byte boundary (copied in bulk)")
+    if err == _CUDA_ERROR_INVALID_VALUE and scratch is not None:
+        need = LIBRARY.load().sheeprl_sum_tree_draw_scratch_bytes(int(depth), n_excl)
+        if 4 * scratch.numel() < need:
+            raise ValueError(f"{name}: a scratch of {4 * scratch.numel()} bytes, {need} needed (draw_scratch)")
+    raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
 def sum_tree_sample(
-    tree: torch.Tensor, r01: torch.Tensor, beta, count, *, depth: int, exclude_idx=None, exclude_active=None
+    tree: torch.Tensor, r01: torch.Tensor, beta, count, *, depth: int, exclude_idx=None, exclude_active=None,
+    scratch: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n = r01.numel()`` proportional draws: (n,) int32 leaves and (n,) f32
     IS weights normalised by their max.  ``exclude_idx`` (distinct where
-    active) are left out of the draw without touching the tree."""
-    if tree.device.type == "cpu":
+    active) are left out of the draw without touching the tree.  ``scratch``
+    is a :func:`draw_scratch` (by default one is made for the call)."""
+    if not tree.is_cuda:  # the per-call path reads as few tensor attributes as it can
+        _device_is_cpu(tree, "sum_tree_sample")
         return sum_tree_sample_plain(
             tree, r01, beta, count, depth=depth, exclude_idx=exclude_idx, exclude_active=exclude_active
         )
-    _device(tree, "sum_tree_sample")
     _check_tree(tree, depth, "sum_tree_sample")
-    r01 = r01.to(tree.device, torch.float32).reshape(-1).contiguous()
-    excl, eact = _excl_args(tree, exclude_idx, exclude_active)
+    r01 = _f32_on(r01, tree)
+    excl, eact, n_excl = _excl_kernel_args(tree, exclude_idx, exclude_active)
+    scratch = _scratch_for(scratch, tree, depth, n_excl, True, "sum_tree_sample")
     lib = LIBRARY.load()
-    n_excl = 0 if excl is None else int(excl.numel())
-    n = int(r01.numel())
-    leaf = torch.empty(n, dtype=torch.int32, device=tree.device)
-    w = torch.empty(n, dtype=torch.float32, device=tree.device)
-    wmax = torch.zeros(1, dtype=torch.float32, device=tree.device)
+    n = r01.numel()
+    leaf, w = r01.new_empty(n, dtype=torch.int32), r01.new_empty(n)
     err = lib.sheeprl_sum_tree_sample(
         tree.data_ptr(), int(depth), r01.data_ptr(), n, float(beta), float(count),
         None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(), n_excl,
-        leaf.data_ptr(), w.data_ptr(), wmax.data_ptr(), torch.cuda.current_stream(tree.device).cuda_stream,
+        leaf.data_ptr(), w.data_ptr(), scratch.data_ptr(), 4 * scratch.numel(), _stream(tree),
     )
-    if err != 0:
-        raise RuntimeError(f"sum_tree_sample kernel launch failed: cudaError {err}")
+    _launched(err, tree, "sum_tree_sample", scratch, depth, n_excl)
     sum_tree_sample.launches += 1
     return leaf, w
 
@@ -305,30 +401,31 @@ def sum_tree_update(tree: torch.Tensor, max_p, leaf_idx, priorities, active, *, 
 
 
 def sum_tree_descend(
-    tree: torch.Tensor, u: torch.Tensor, *, depth: int, exclude_idx=None, exclude_active=None
+    tree: torch.Tensor, u: torch.Tensor, *, depth: int, exclude_idx=None, exclude_active=None,
+    scratch: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n = u.numel()`` corrected descents of ``u`` (in [0, the tree's mass
     less the excluded mass)): (n,) int32 leaves and their (n,) f32 stored
     masses.  ``exclude_idx`` (distinct where active) are left out of the
-    descent without touching the tree."""
-    if tree.device.type == "cpu":
+    descent without touching the tree.  ``scratch`` as for
+    :func:`sum_tree_sample` (only the exclusions' pre-pass uses it)."""
+    if not tree.is_cuda:
+        _device_is_cpu(tree, "sum_tree_descend")
         return sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=exclude_idx, exclude_active=exclude_active)
-    _device(tree, "sum_tree_descend")
     _check_tree(tree, depth, "sum_tree_descend")
-    u = u.to(tree.device, torch.float32).reshape(-1).contiguous()
-    excl, eact = _excl_args(tree, exclude_idx, exclude_active)
+    u = _f32_on(u, tree)
+    excl, eact, n_excl = _excl_kernel_args(tree, exclude_idx, exclude_active)
+    scratch = _scratch_for(scratch, tree, depth, n_excl, False, "sum_tree_descend")
     lib = LIBRARY.load()
-    n = int(u.numel())
-    leaf = torch.empty(n, dtype=torch.int32, device=tree.device)
-    mass = torch.empty(n, dtype=torch.float32, device=tree.device)
+    n = u.numel()
+    leaf, mass = u.new_empty(n, dtype=torch.int32), u.new_empty(n)
     err = lib.sheeprl_sum_tree_descend(
         tree.data_ptr(), int(depth), u.data_ptr(), n,
-        None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(),
-        0 if excl is None else int(excl.numel()), leaf.data_ptr(), mass.data_ptr(),
-        torch.cuda.current_stream(tree.device).cuda_stream,
+        None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(), n_excl,
+        leaf.data_ptr(), mass.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else 4 * scratch.numel(), _stream(tree),
     )
-    if err != 0:
-        raise RuntimeError(f"sum_tree_descend kernel launch failed: cudaError {err}")
+    _launched(err, tree, "sum_tree_descend", scratch, depth, n_excl)
     sum_tree_descend.launches += 1
     return leaf, mass
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.ops.per import (
+    draw_scratch,
     owner_scratch,
     sum_tree_descend,
     sum_tree_descend_plain,
@@ -93,6 +94,13 @@ def per_beta_schedule(beta0: float, beta_end: float, total_steps: int):
     return beta
 
 
+def _count(idx) -> int:
+    """How many leaves ``idx`` (None, a tensor or an array) names."""
+    if idx is None:
+        return 0
+    return idx.numel() if isinstance(idx, torch.Tensor) else int(np.size(idx))
+
+
 def _tree_zeroed(tree: torch.Tensor, leaf_idx, active, depth: int) -> torch.Tensor:
     """A copy of ``tree`` with ``leaf_idx`` zeroed where ``active``: the
     sampling-time exclusions of the lax path (``priority_tree.py:100``).
@@ -138,6 +146,8 @@ class PriorityTree:
         self.tree = torch.zeros(2 << self.depth, dtype=torch.float32, device=self.device)
         self.max_priority = torch.tensor(float(initial_priority), dtype=torch.float32, device=self.device)
         self._owner: Optional[torch.Tensor] = None  # the kernel writes' scratch, made at the first one
+        self._draws: Optional[torch.Tensor] = None  # the kernel draws' scratch, made at the first one
+        self._draws_room = 0  # the exclusions it has room for
 
     def _idx(self, leaf_idx) -> torch.Tensor:
         return torch.as_tensor(leaf_idx, device=self.device).reshape(-1).to(torch.int64)
@@ -152,6 +162,15 @@ class PriorityTree:
         if self._owner is None and self.device.type == "cuda":
             self._owner = owner_scratch(self.depth, self.device)
         return self._owner
+
+    def draw_scratch(self, n_excl: int) -> torch.Tensor:
+        """The draw kernels' scratch (``ops/per.py:draw_scratch``) with room
+        for ``n_excl`` exclusions: kept, and made anew only when it is too
+        small."""
+        if self._draws is None or n_excl > self._draws_room:
+            self._draws = draw_scratch(self.depth, n_excl, self.device)
+            self._draws_room = n_excl
+        return self._draws
 
     def _write_tree(self, leaf_idx: torch.Tensor, values: torch.Tensor, active: torch.Tensor) -> None:
         if self.kernel == "pallas":
@@ -213,12 +232,15 @@ class PriorityTree:
         the excluded leaves distinct where active (every caller's are)."""
         if r01 is None:
             r01 = torch.rand((int(n),), generator=generator, device=self.device)
-        r01 = r01.to(self.device, torch.float32).reshape(-1)
+        elif r01.dim() != 1 or r01.dtype != torch.float32 or r01.device.type != self.device.type:
+            r01 = r01.to(self.device, torch.float32).reshape(-1)
         if r01.numel() != int(n):
             raise ValueError(f"{r01.numel()} uniforms for {n} draws")
         if self.kernel == "pallas":
+            n_excl = _count(exclude_idx)
             return sum_tree_sample(
-                self.tree, r01, beta, count, depth=self.depth, exclude_idx=exclude_idx, exclude_active=exclude_active
+                self.tree, r01, beta, count, depth=self.depth, exclude_idx=exclude_idx, exclude_active=exclude_active,
+                scratch=self.draw_scratch(n_excl) if self.device.type == "cuda" else None,
             )
         tree = self.tree
         if exclude_idx is not None:
@@ -263,6 +285,14 @@ class PriorityTree:
 
 # --------------------------------------------------------------------- sharded
 _ONE_LESS_ULP = torch.tensor(1.0 - 1e-7, dtype=torch.float32)  # JAX's f32(1 - 1e-7)
+_ONE_LESS_ON = {}  # its copy on each device, made once (a copy from the host waits for the stream)
+
+
+def _one_less(device: torch.device) -> torch.Tensor:
+    t = _ONE_LESS_ON.get(device)
+    if t is None:
+        t = _ONE_LESS_ON[device] = _ONE_LESS_ULP.to(device)
+    return t
 
 
 def shard_proportional_draw(
@@ -273,6 +303,7 @@ def shard_proportional_draw(
     kernel: str = "lax",
     exclude_idx: Optional[Sequence] = None,
     exclude_active: Optional[Sequence] = None,
+    scratch: Optional[torch.Tensor] = None,
 ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Globally proportional draw from per-shard sub-trees
     (``priority_tree.py:331-399``), every shard's body in shard order.
@@ -292,11 +323,13 @@ def shard_proportional_draw(
 
     ``kernel="pallas"`` descends through kernel #8 (``sum_tree_descend``)
     with the shard-local exclusions ``exclude_idx[r]`` (``exclude_active[r]``)
-    folded into the descent; the lax path takes no exclusions (its caller
-    zeroes them in a copy of the sub-tree, :func:`_tree_zeroed_local`)."""
+    folded into the descent, every shard's descent through one ``scratch``
+    (``ShardedPriorityTree.draw_scratch``; they run one after another on one
+    stream); the lax path takes no exclusions (its caller zeroes them in a
+    copy of the sub-tree, :func:`_tree_zeroed_local`)."""
     n_shards = len(trees)
     device = trees[0].device
-    one_less = _ONE_LESS_ULP.to(device)
+    one_less = _one_less(device)
     excl = [None] * n_shards if exclude_idx is None else list(exclude_idx)
     eact = [None] * n_shards if exclude_active is None else list(exclude_active)
     if kernel == "pallas":
@@ -306,8 +339,11 @@ def shard_proportional_draw(
                 m_local.append(tree[1])
                 continue
             e = torch.as_tensor(excl[r], device=device).reshape(-1).long()
-            a = torch.ones(e.shape, dtype=torch.bool, device=device) if eact[r] is None else torch.as_tensor(eact[r], device=device).reshape(e.shape).bool()
-            m_local.append(tree[1] - torch.where(a, tree[e + (1 << depth)], torch.zeros((), device=device)).sum())
+            emass = tree[e + (1 << depth)]
+            if eact[r] is not None:
+                a = torch.as_tensor(eact[r], device=device).reshape(e.shape).bool()
+                emass = torch.where(a, emass, torch.zeros((), device=device))
+            m_local.append(tree[1] - emass.sum())
     else:
         if exclude_idx is not None:
             raise ValueError("exclude_idx on the lax path: zero the sub-trees instead")
@@ -324,7 +360,9 @@ def shard_proportional_draw(
         # cumsum rounding can widen a shard's interval past its own mass by an ulp
         u_loc = torch.clamp(u - lo, torch.zeros((), device=device), m_local[r] * one_less)
         if kernel == "pallas":
-            leaf, mass = sum_tree_descend(tree, u_loc, depth=depth, exclude_idx=excl[r], exclude_active=eact[r])
+            leaf, mass = sum_tree_descend(
+                tree, u_loc, depth=depth, exclude_idx=excl[r], exclude_active=eact[r], scratch=scratch
+            )
         else:
             leaf, mass = sum_tree_descend_plain(tree, u_loc, depth=depth)
         out.append((leaf, mass, own, total))
@@ -373,6 +411,8 @@ class ShardedPriorityTree:
         self.trees = torch.zeros((self.n_shards, 2 << self.depth), dtype=torch.float32, device=self.device)
         self.max_priority = torch.tensor(float(initial_priority), dtype=torch.float32, device=self.device)
         self._owner: Optional[torch.Tensor] = None  # kernel #9's scratch, made at its first write
+        self._draws: Optional[torch.Tensor] = None  # kernel #8's scratch, made at its first pre-pass
+        self._draws_room = 0
 
     # ------------------------------------------------------------- mapping
     def _map_leaves(self, leaf_idx):
@@ -388,6 +428,8 @@ class ShardedPriorityTree:
     # the shards' scatters run one after another and each leaves the scratch
     # all -1, so one (P,) scratch serves every shard
     _scratch = PriorityTree._scratch
+    # likewise one draw scratch serves the shards' descents
+    draw_scratch = PriorityTree.draw_scratch
 
     def _write(self, leaf_idx, values, active, track_max: bool) -> None:
         """Every shard writes the active lanes it owns; with ``track_max`` the

@@ -501,3 +501,125 @@ def test_sharded_priority_tree_kernels_match_lax():
     want = shard_proportional_draw(list(plain.trees), r01, depth=plain.depth, kernel="lax")
     for a, b in zip(got, want):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _packed_exclusions(n_leaves, n_excl, start):
+    """``n_excl`` adjacent leaves from ``start``: as few buckets (subtrees
+    under a draw's shared-memory levels) as hold them, one where they fit."""
+    return (torch.arange(n_excl, device="cuda", dtype=torch.int32) + start) % n_leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 14, 20])
+@pytest.mark.parametrize("n", [1, 1000])
+@pytest.mark.parametrize("n_excl", [0, 1, 4, 63, 252, 1025, 2016])
+def test_draws_match_plain(depth, n, n_excl):
+    """Kernels #5 and #8 at a depth under the 10 shared-memory levels, at 14
+    and at 20, for 1 draw and for 1000 (not a multiple of the block), with
+    0 to 2016 adjacent exclusions (one bucket where they fit), integer
+    priorities: leaves (and masses) identical to the plain versions, weights
+    to 1e-6 relative.  One scratch serves every call, and what it holds on
+    entry does not matter: it is filled with junk before each."""
+    from sheeprl_tpu_torch.ops import per
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(depth * 10000 + n_excl + n)
+    n_leaves = 1 << depth
+    n_excl = min(n_excl, n_leaves // 2)
+    tree = _tree(n_leaves, torch.randint(0, 9, (n_leaves,), generator=g, device="cuda").float())
+    excl = _packed_exclusions(n_leaves, n_excl, n_leaves // 3) if n_excl else None
+    p = 1 << tree.depth
+    m = tree.tree[1] - (tree.tree[excl.long() + p].sum() if n_excl else 0.0)
+    r01 = torch.rand(n, generator=g, device="cuda")
+    u = r01 * m * (1.0 - 1e-7)
+    scratch = per.draw_scratch(tree.depth, n_excl, "cuda")
+    leaf_p, w_p = per.sum_tree_sample_plain(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl)
+    dleaf_p, mass_p = per.sum_tree_descend_plain(tree.tree, u, depth=tree.depth, exclude_idx=excl)
+    for junk in (0, -1, 0x7F7FFFFF):
+        scratch.fill_(junk)
+        leaf, w = per.sum_tree_sample(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl, scratch=scratch)
+        scratch.fill_(junk)
+        dleaf, mass = per.sum_tree_descend(tree.tree, u, depth=tree.depth, exclude_idx=excl, scratch=scratch)
+        torch.cuda.synchronize()
+        assert torch.equal(leaf, leaf_p) and ((w - w_p).abs() <= 1e-6 * w_p.abs()).all()
+        assert torch.equal(dleaf, dleaf_p) and torch.equal(mass, mass_p)
+    if excl is not None:
+        assert not torch.isin(leaf, excl).any() and not torch.isin(dleaf, excl).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [6, 18])
+def test_draws_on_a_tree_with_one_nonzero_leaf(depth):
+    """Every draw lands on the one leaf with mass, with and without
+    exclusions of other leaves; its weight is 1."""
+    from sheeprl_tpu_torch.ops import per
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    n_leaves = 1 << depth
+    pri = torch.zeros(n_leaves, device="cuda")
+    pri[n_leaves // 2 + 3] = 5.0
+    tree = _tree(n_leaves, pri)
+    r01 = torch.rand(777, generator=torch.Generator(device="cuda").manual_seed(depth), device="cuda")
+    for excl in (None, torch.tensor([0, 1, n_leaves - 1], device="cuda", dtype=torch.int32),
+                 torch.arange(min(100, n_leaves // 2), device="cuda", dtype=torch.int32)):
+        leaf, w = per.sum_tree_sample(tree.tree, r01, 0.4, n_leaves, depth=tree.depth, exclude_idx=excl)
+        dleaf, mass = per.sum_tree_descend(tree.tree, r01 * 5.0, depth=tree.depth, exclude_idx=excl)
+        torch.cuda.synchronize()
+        assert bool((leaf == n_leaves // 2 + 3).all()) and bool((w == 1.0).all())
+        assert bool((dleaf == n_leaves // 2 + 3).all()) and bool((mass == 5.0).all())
+
+
+@pytest.mark.cuda
+def test_priority_tree_draws_keep_one_scratch():
+    """``PriorityTree.sample`` with the kernels keeps one draw scratch and
+    makes a larger one only for more exclusions than it has room for; the
+    draws equal the lax tree's."""
+    from sheeprl_tpu_torch.ops import per
+    from sheeprl_tpu_torch.replay.priority_tree import PriorityTree
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    fast, plain = PriorityTree(5000, device="cuda", kernel="pallas"), PriorityTree(5000, device="cuda", kernel="lax")
+    pri = torch.randint(1, 9, (5000,), generator=g, device="cuda").float()
+    for t in (fast, plain):
+        t.set_priorities(torch.arange(5000, device="cuda"), pri)
+    kept = []
+    for n_excl in (0, 4, 0, 300, 16):
+        excl = torch.randperm(5000, generator=g, device="cuda")[:n_excl] if n_excl else None
+        r01 = torch.rand(4096, generator=g, device="cuda")
+        got = fast.sample(4096, beta=0.4, count=5000, exclude_idx=excl, r01=r01)
+        want = plain.sample(4096, beta=0.4, count=5000, exclude_idx=excl, r01=r01)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and ((got[1] - want[1]).abs() <= 1e-6 * want[1].abs()).all()
+        kept.append(fast._draws)
+    assert kept[1] is kept[2] and kept[3] is kept[4] and kept[0] is not kept[1] and kept[2] is not kept[3]
+    assert fast._draws.numel() == per.draw_scratch(fast.depth, 300, "cuda").numel()
+    with pytest.raises(ValueError, match="needed"):
+        per.sum_tree_sample(fast.tree, r01, 0.4, 5000, depth=fast.depth, exclude_idx=excl, scratch=kept[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_excl", [0, 4, 100])
+def test_sample_of_more_draws_than_resident_threads(n_excl):
+    """300,000 draws are more than the cooperative sample's resident blocks
+    hold a thread each (at most 1,024 blocks of 256): its threads loop over
+    several draws each.  Leaves identical to the plain version, weights to
+    1e-6 relative, twice on one scratch."""
+    from sheeprl_tpu_torch.ops import per
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(300 + n_excl)
+    n_leaves = 1 << 14
+    tree = _tree(n_leaves, torch.randint(0, 9, (n_leaves,), generator=g, device="cuda").float())
+    excl = torch.randperm(n_leaves, generator=g, device="cuda")[:n_excl].to(torch.int32) if n_excl else None
+    r01 = torch.rand(300000, generator=g, device="cuda")
+    scratch = per.draw_scratch(tree.depth, n_excl, "cuda")
+    for _ in range(2):
+        leaf, w = per.sum_tree_sample(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl, scratch=scratch)
+        leaf_p, w_p = per.sum_tree_sample_plain(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl)
+        torch.cuda.synchronize()
+        assert torch.equal(leaf, leaf_p) and ((w - w_p).abs() <= 1e-6 * w_p.abs()).all()
