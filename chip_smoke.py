@@ -55,8 +55,10 @@ train step (no trace: a train step's is too large to bring back).
 under DIR (default: this checkout) and prints its check and timing rows, so
 that two checkouts can be timed in turns on one card, and the card's
 ``mma.sync`` rates (phase ``mma_sync_peak``).  ``--tree-bench DIR`` runs
-the sum-tree kernels' checks and rows of the checkout under DIR and of this
-one in turns, each by its own script (``chiprun_out/tree_bench.json``).
+the sum-tree kernels' checks and rows (draws, writes, updates, scatters and
+the writes' lane-count cases) and the transition gather's row at the SAC
+shape of the checkout under DIR and of this one in turns, each by its own
+script (``chiprun_out/tree_bench.json``).
 None of these prints an ``ok`` line.
 """
 
@@ -1217,19 +1219,79 @@ def check_sum_tree_kernels(torch) -> dict:
         call_args = ((torch.tensor(1.0, device="cuda"),) if upd else ()) + args
         nbytes = write_bytes(torch, args[0], lane_act, depth, upd)
         b_ms, b_by = bound(nbytes)
+
+        def kernel():
+            return fn(scratch, *call_args, depth=depth, owner=owner)
+
+        dev_ms, dev_ops = device_ms(torch, kernel, ops=True)
         row = {
             "lanes": int(args[0].numel()), "active": int(lane_act.sum()), "duplicates": 0 if not upd else 2048,
             "max_abs_err": 0.0,
-            "ms": time_ms(torch, lambda: fn(scratch, *call_args, depth=depth, owner=owner), iters=50),
+            "ms": time_ms(torch, kernel, iters=50),
             "plain_ms": time_ms(torch, lambda: plain_fn(scratch, *call_args, depth=depth), iters=10),
-            "library_ms": None,
-            "device_ms": device_ms(torch, lambda: fn(scratch, *call_args, depth=depth, owner=owner)),
+            "library_ms": None, "device_ms": dev_ms, "device_ops": dev_ops,
+            "host_us": host_us(torch, kernel), "launch_floor_ms": floor_ms,
             "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
         }
         phase(name, **row)
         rows[name] = row
+    rows["write_cases"] = check_write_cases(torch, base, depth, TREE_LEAVES, ("write", "update"), owner)
     del trees, scratch, a, b
     return rows
+
+
+WRITE_CASE_LANES = (1, 255, 256, 1024, 1025, 16384, 65536)
+
+
+def check_write_cases(torch, base, depth: int, n_leaves: int, kinds, owner) -> list:
+    """The writes at lane counts on both sides of the one-block method's
+    1,024 lanes and at the paths' shapes, on a copy of ``base`` whose
+    internal nodes are random (not the sums of their children), with
+    duplicates, inactive lanes and, for the scatter, the other shards'
+    lanes: trees equal to the plain versions' from slot 1 (untouched nodes
+    keep their bits), maxima exact, the owner scratch clean; each case's
+    device time and device operations a call."""
+    from sheeprl_tpu_torch.ops import per
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    p = 1 << depth
+    broken = base.clone()
+    broken[1:p] = torch.randint(0, 1000, (p - 1,), generator=g, device="cuda").float() * 0.37
+    max_p = torch.tensor(0.5, device="cuda")
+    out = []
+    for lanes in WRITE_CASE_LANES:
+        leaf = torch.randint(0, n_leaves, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+        leaf[lanes // 2 : lanes // 2 + lanes // 4] = leaf[: lanes // 4]
+        vals = torch.rand(lanes, generator=g, device="cuda") * 3
+        active = torch.rand(lanes, generator=g, device="cuda") < 0.7
+        active[0] = True
+        sid = torch.randint(0, 4, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+        sid[0] = 1
+        calls = {
+            "write": (lambda t: (per.sum_tree_write(t, leaf, vals, active, depth=depth, owner=owner), None)[1],
+                      lambda t: (per.sum_tree_write_plain(t, leaf, vals, active, depth=depth), None)[1]),
+            "update": (lambda t: per.sum_tree_update(t, max_p, leaf, vals, active, depth=depth, owner=owner),
+                       lambda t: per.sum_tree_update_plain(t, max_p, leaf, vals, active, depth=depth)),
+            "scatter": (lambda t: per.sum_tree_scatter(t, leaf, vals, active, sid, 1, depth=depth, owner=owner)[1],
+                        lambda t: per.sum_tree_scatter_plain(t, leaf, vals, active, sid, 1, depth=depth)[1]),
+        }
+        for kind in kinds:
+            kernel, plain = calls[kind]
+            a, b = broken.clone(), broken.clone()
+            got, want = kernel(a), plain(b)
+            torch.cuda.synchronize()
+            if not torch.equal(a[1:], b[1:]) or (want is not None and float(got) != float(want)):
+                raise AssertionError(f"sum_tree_{kind} at {lanes} lanes on a non-invariant tree: differs from the plain version")
+            if not bool((owner == -1).all()):
+                raise AssertionError(f"sum_tree_{kind} at {lanes} lanes: the owner scratch was left dirty")
+            dev_ms, dev_ops = device_ms(torch, lambda: kernel(a), iters=5, warmup=1, ops=True)
+            if dev_ops != 1:
+                raise AssertionError(f"sum_tree_{kind} at {lanes} lanes: {dev_ops} device operations a call, want 1")
+            row = {"kind": kind, "lanes": lanes, "depth": depth, "device_ms": dev_ms, "device_ops": dev_ops,
+                   "written": int(torch.unique(leaf[active & (sid == 1) if kind == "scatter" else active]).numel())}
+            phase("sum_tree_write_case", **row)
+            out.append(row)
+    return out
 
 
 def check_sharded_tree_kernels(torch) -> dict:
@@ -1334,25 +1396,33 @@ def check_sharded_tree_kernels(torch) -> dict:
         own = active & (shard_ids == 1)
         nbytes = write_bytes(torch, leaf_idx, own, depth, True) + 4 * lanes
         b_ms, b_by = bound(nbytes)
+
+        def kernel():
+            return per.sum_tree_scatter(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth, owner=owner)
+
+        dev_ms, dev_ops = device_ms(torch, kernel, ops=True)
         row = {
-            "lanes": lanes, "owned_active": int(own.sum()), "launches_per_call": depth + 2, "max_abs_err": 0.0,
-            "ms": time_ms(torch, lambda: per.sum_tree_scatter(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth, owner=owner), iters=50),
+            "lanes": lanes, "owned_active": int(own.sum()), "max_abs_err": 0.0,
+            "ms": time_ms(torch, kernel, iters=50),
             "plain_ms": time_ms(torch, lambda: per.sum_tree_scatter_plain(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth), iters=10),
-            "library_ms": None,
-            "device_ms": device_ms(torch, lambda: per.sum_tree_scatter(scratch, leaf_idx, vals, active, shard_ids, 1, depth=depth, owner=owner)),
+            "library_ms": None, "device_ms": dev_ms, "device_ops": dev_ops,
+            "host_us": host_us(torch, kernel), "launch_floor_ms": floor_ms,
             "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
         }
         phase("sum_tree_scatter", **row)
         rows[f"scatter_{lanes}"] = row
+    rows["write_cases"] = check_write_cases(torch, base, depth, SHARD_LEAVES, ("scatter",), owner)
     del trees, base, scratch
     return rows
 
 
 def check_transitions_gather(torch) -> dict:
     """The transition gather against its plain version, bytes exact: uint8
-    and f32 rows of 1, 4, 24 and 96 bytes and a key with no feature axis,
-    successor rows that wrap the ring, with and without next keys, all keys
-    in one launch."""
+    and f32 rows of 1, 4, 24 and 96 bytes, a key with no feature axis and a
+    96-byte key whose ring starts 4 bytes into its allocation (a slice: 4-byte
+    chunks), successor rows that wrap the ring, with and without next keys,
+    all keys in one launch; then one row (flat = 1), and the calls again
+    after a ring is replaced by a new tensor behind the same key."""
     g = torch.Generator(device="cuda").manual_seed(4)
     cap, n_envs, flat = 97, 3, 1000
     bufs = {"flag": torch.randint(0, 2, (cap, n_envs), generator=g, device="cuda", dtype=torch.uint8)}
@@ -1362,27 +1432,38 @@ def check_transitions_gather(torch) -> dict:
             if elems:
                 ring = torch.randint(0, 255, (cap, n_envs, elems), generator=g, device="cuda").to(dtype)
                 bufs[f"{str(dtype)[6:]}_{nbytes}"] = ring if dtype == torch.uint8 else ring + torch.rand(ring.shape, generator=g, device="cuda")
+    raw = torch.randint(0, 256, (cap * n_envs * 96 + 4,), generator=g, device="cuda", dtype=torch.uint8)
+    bufs["sliced_96"] = raw[4:].view(cap, n_envs, 96)
     rows = torch.randint(0, cap, (flat,), generator=g, device="cuda", dtype=torch.int32)
     rows[:8] = cap - 1
     envs = torch.randint(0, n_envs, (flat,), generator=g, device="cuda", dtype=torch.int32)
     from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
 
-    for next_keys in ((), tuple(bufs)):
-        out = gather_transitions(bufs, rows, envs, next_keys=next_keys)
-        ref = gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
-        torch.cuda.synchronize()
-        for k in ref:
-            if out[k].dtype != ref[k].dtype or not torch.equal(out[k], ref[k]):
-                raise AssertionError(f"gather_transitions '{k}' (next keys {len(next_keys)}): not byte-identical")
+    def check(what: str, n: int) -> None:
+        for next_keys in ((), tuple(bufs)):
+            out = gather_transitions(bufs, rows[:n], envs[:n], next_keys=next_keys)
+            ref = gather_transitions_plain(bufs, rows[:n], envs[:n], next_keys=next_keys)
+            torch.cuda.synchronize()
+            for k in ref:
+                if out[k].dtype != ref[k].dtype or not torch.equal(out[k], ref[k]):
+                    raise AssertionError(f"gather_transitions '{k}' ({what}, next keys {len(next_keys)}): not byte-identical")
+
+    check("all keys", flat)
+    check("flat = 1", 1)
+    bufs["float32_96"] = torch.randn(cap, n_envs, 24, generator=g, device="cuda")  # a new ring behind the key
+    check("a ring replaced", flat)
     res = {"keys": {k: [str(v.dtype)[6:], v[0, 0].numel() * v.element_size()] for k, v in bufs.items()},
-           "rows": flat, "next_keys": [0, len(bufs)], "bytes_exact": True}
+           "rows": [flat, 1], "next_keys": [0, len(bufs)], "sliced_base_mod_16": bufs["sliced_96"].data_ptr() % 16,
+           "ring_replaced": True, "bytes_exact": True}
     phase("gather_transitions_check", **res)
     return res
 
 
 def time_transitions_gather(torch, cache, leaves) -> dict:
     """The transition gather at the SAC dispatch's shape (one draw's rows on
-    the full-size rings): kernel, plain version, per-key ``index_select``."""
+    the full-size rings): kernel, plain version, per-key ``index_select``
+    (event and device time), the wrapper's host time a call, its device
+    operations and the launch floor of the ctypes route."""
     from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
 
     bufs = cache.buffers
@@ -1398,12 +1479,21 @@ def time_transitions_gather(torch, cache, leaves) -> dict:
     if any(not torch.equal(out[k], ref[k]) for k in ref):
         raise AssertionError("gather_transitions: not byte-identical at the SAC shape")
     b_ms, b_by = bound(2 * n * row_bytes + 8 * n)
+
+    def kernel():
+        return gather_transitions(bufs, rows, envs)
+
+    def library():
+        return [v.index_select(0, flat_leaves) for v in flat.values()]
+
+    dev_ms, dev_ops = device_ms(torch, kernel, ops=True)
     res = {
         "rows": n, "row_bytes": row_bytes, "max_abs_err": 0.0,
-        "ms": time_ms(torch, lambda: gather_transitions(bufs, rows, envs), iters=50),
+        "ms": time_ms(torch, kernel, iters=50),
         "plain_ms": time_ms(torch, lambda: gather_transitions_plain(bufs, rows, envs), iters=50),
-        "library_ms": time_ms(torch, lambda: [v.index_select(0, flat_leaves) for v in flat.values()], iters=50),
-        "device_ms": device_ms(torch, lambda: gather_transitions(bufs, rows, envs)),
+        "library_ms": time_ms(torch, library, iters=50),
+        "device_ms": dev_ms, "device_ops": dev_ops, "library_device_ms": device_ms(torch, library),
+        "host_us": host_us(torch, kernel), "launch_floor_ms": launch_floor_ms(torch),
         "bound_ms": b_ms, "bound_by": b_by,
     }
     phase("gather_transitions", **res)
@@ -2140,6 +2230,11 @@ def profile_serving(steps: int) -> dict:
     return res
 
 
+def _cases(cases: list, kind: str) -> list:
+    """A write kind's boundary cases (:func:`check_write_cases`) for its entry."""
+    return [{k: c[k] for k in ("lanes", "device_ms", "device_ops")} for c in cases if c["kind"] == kind]
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: dict, row: dict, shape: str, **extra) -> dict:
     """One entry of the ``kernels`` line from a kernel's timing row."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
@@ -2228,8 +2323,9 @@ def gru_bench(torch) -> int:
     return 0
 
 
-# One turn of --tree-bench: the draw kernels' checks and rows of the
-# checkout at argv[1], by that checkout's own chip_smoke.py.
+# One turn of --tree-bench: the sum-tree kernels' checks and rows and the
+# transition gather's row of the checkout at argv[1], by that checkout's own
+# chip_smoke.py.
 _TREE_TURN = """
 import sys
 import torch
@@ -2241,6 +2337,20 @@ smoke.phase("device", name=torch.cuda.get_device_name(0), nvidia_smi=smoke.nvidi
 smoke.phase("build", **smoke.build_kernels([per.LIBRARY]))
 smoke.check_sum_tree_kernels(torch)
 smoke.check_sharded_tree_kernels(torch)
+# the transition gather at the SAC dispatch's shape: walker-walk rings of
+# 250,000 rows x 4 envs (1,000,000 transitions), one draw's 16,384 rows
+from types import SimpleNamespace
+from sheeprl_tpu_torch.ops import gather
+smoke.phase("build", **smoke.build_kernels([gather.TRANSITIONS_LIBRARY]))
+g = torch.Generator(device="cuda").manual_seed(6)
+cap, n_envs = 250000, 4
+feats = {"terminated": (torch.uint8, 1), "truncated": (torch.uint8, 1), "actions": (torch.float32, smoke.WALKER_ACTIONS),
+         "observations": (torch.float32, smoke.WALKER_OBS), "next_observations": (torch.float32, smoke.WALKER_OBS),
+         "rewards": (torch.float32, 1)}
+rings = {k: (torch.randint(0, 2, (cap, n_envs, f), generator=g, device="cuda", dtype=dt) if dt == torch.uint8
+             else torch.randn(cap, n_envs, f, generator=g, device="cuda")) for k, (dt, f) in feats.items()}
+leaves = torch.randint(0, cap * n_envs, (smoke.TREE_DRAWS,), generator=g, device="cuda")
+smoke.time_transitions_gather(torch, SimpleNamespace(buffers=rings, n_envs=n_envs, capacity=cap), leaves)
 print(smoke.nvidia_smi(), flush=True)
 """
 
@@ -2249,10 +2359,12 @@ def tree_bench(parent: str) -> int:
     """``--tree-bench DIR``: the sum-tree kernels' checks and rows of the
     checkout under DIR (the parent, unpacked with ``git archive``) and of
     this one in turns, parent, this, this, parent, each by its own
-    ``chip_smoke.py`` in a process of its own on the one card.  Each turn's
-    output goes to ``chiprun_out/tree_bench_<turn>.log`` and its draw rows
-    (``sum_tree_sample``, ``sum_tree_descend``) to
-    ``chiprun_out/tree_bench.json``."""
+    ``chip_smoke.py`` in a process of its own on the one card, and the
+    transition gather at the SAC shape on seeded walker-walk rings.  Each
+    turn's output goes to ``chiprun_out/tree_bench_<turn>.log`` and its rows
+    (``sum_tree_sample``, ``sum_tree_descend``, ``sum_tree_write``,
+    ``sum_tree_update``, ``sum_tree_scatter``, the write cases and
+    ``gather_transitions``) to ``chiprun_out/tree_bench.json``."""
     here = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(here, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2268,10 +2380,19 @@ def tree_bench(parent: str) -> int:
         rows = {}
         for ln in proc.stdout.splitlines():
             tag, _, body = ln.partition(" ")
-            if tag in ("[sum_tree_sample]", "[sum_tree_descend]"):
+            name = tag[1:-1]
+            if name in ("sum_tree_sample", "sum_tree_descend"):
                 row = json.loads(body)
                 row.pop("checks", None)
-                rows[f"{tag[1:-1]}_e{row['exclusions']}"] = row
+                rows[f"{name}_e{row['exclusions']}"] = row
+            elif name in ("sum_tree_write", "sum_tree_update", "gather_transitions"):
+                rows[name] = json.loads(body)
+            elif name == "sum_tree_scatter":
+                row = json.loads(body)
+                rows[f"{name}_{row['lanes']}"] = row
+            elif name == "sum_tree_write_case":
+                row = json.loads(body)
+                rows[f"{name}_{row['kind']}_{row['lanes']}"] = row
         smi = proc.stdout.strip().splitlines()[-1]
         turns.append({"turn": label, "root": root, "nvidia_smi": smi, "rows": rows})
         phase("tree_bench", turn=label, root=root, nvidia_smi=smi, rows=rows)
@@ -2465,7 +2586,8 @@ def main() -> int:
                       "sheeprl_tpu/ops/pallas_gather.py:127",
                       {"sac": sac["launches"]["gather_transitions"],
                        "sac_sharded": sharded["state_check"]["uniform_gather_launches"]},
-                      transitions_row, f"{transitions_row['rows']} rows x {transitions_row['row_bytes']} B"),
+                      transitions_row, f"{transitions_row['rows']} rows x {transitions_row['row_bytes']} B",
+                      **{k: transitions_row[k] for k in ("host_us", "launch_floor_ms", "device_ops", "library_device_ms")}),
         _kernel_entry("sum_tree_sample", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:171",
                       {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"]},
                       tree_rows["sample_e0"], f"{TREE_DRAWS} draws, {TREE_LEAVES} leaves, no exclusions",
@@ -2478,10 +2600,14 @@ def main() -> int:
                       flips_integer_e2016=tree_rows["sample_e2016"]["checks"]["integer"]["flips"]),
         _kernel_entry("sum_tree_write", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:252",
                       {"sac": sac["launches"]["sum_tree_write"], "training_per": per_train["launches"]["sum_tree_write"]},
-                      tree_rows["sum_tree_write"], "256 lanes (one SAC flush), 2^20-leaf tree"),
+                      tree_rows["sum_tree_write"], "256 lanes (one SAC flush), 2^20-leaf tree",
+                      **{k: tree_rows["sum_tree_write"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
+                      cases=_cases(tree_rows["write_cases"], "write")),
         _kernel_entry("sum_tree_update", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:275",
                       {"sac": sac["launches"]["sum_tree_update"]},
-                      tree_rows["sum_tree_update"], f"{TREE_DRAWS} lanes, 2^20-leaf tree"),
+                      tree_rows["sum_tree_update"], f"{TREE_DRAWS} lanes, 2^20-leaf tree",
+                      **{k: tree_rows["sum_tree_update"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
+                      cases=_cases(tree_rows["write_cases"], "update")),
         _kernel_entry("gru_sequence", "sheeprl_tpu_torch/csrc/seq_gru.cu", "sheeprl_tpu/ops/seq_gru.py:126",
                       {"training_decoupled": dec["launches"]["gru_sequence"]}, seq_row, seq_row["shape"],
                       fwd_bwd_ms=seq_row["fwd_bwd_ms"], plain_fwd_bwd_ms=seq_row["plain_fwd_bwd_ms"]),
@@ -2498,8 +2624,12 @@ def main() -> int:
         _kernel_entry("sum_tree_scatter", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:238",
                       {"sac_sharded": sharded["launches"]["sum_tree_scatter"]}, shard_rows[f"scatter_{SHARDED_DRAWS}"],
                       f"{SHARDED_DRAWS} lanes over 4 shards (one TD update's), one shard's {SHARD_LEAVES}-leaf sub-tree",
+                      **{k: shard_rows[f"scatter_{SHARDED_DRAWS}"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
                       ms_1024=shard_rows["scatter_1024"]["ms"], device_ms_1024=shard_rows["scatter_1024"]["device_ms"],
-                      bound_ms_1024=shard_rows["scatter_1024"]["bound_ms"]),
+                      bound_ms_1024=shard_rows["scatter_1024"]["bound_ms"],
+                      host_us_1024=shard_rows["scatter_1024"]["host_us"],
+                      device_ops_1024=shard_rows["scatter_1024"]["device_ops"],
+                      cases=_cases(shard_rows["write_cases"], "scatter")),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

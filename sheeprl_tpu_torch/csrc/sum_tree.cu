@@ -7,7 +7,8 @@
 //   _update_kernel  (the pallas_call of sum_tree_update)  -> the same entry point
 //                   with the running-max fold switched on
 //   _descend_kernel (the pallas_call of sum_tree_descend) -> sheeprl_sum_tree_descend
-//   _write_kernel   (the pallas_call of sum_tree_scatter) -> sheeprl_sum_tree_scatter
+//   _write_kernel   (the pallas_call of sum_tree_scatter) -> sheeprl_sum_tree_write
+//                   with the shard's ids and rank
 //
 // The tree is a 1-based heap of 2P f32 (P = 2^depth leaves): the root, the
 // total mass, at 1, leaf l at P + l, slot 0 unused.
@@ -80,30 +81,47 @@
 //   is the library's (sheeprl_sum_tree_draw_scratch_bytes), and a call with
 //   a smaller one is refused.
 
-// Write/update: set leaf[i] to values[i] where active[i], then rebuild every
-// touched ancestor bottom-up as tree[2p] + tree[2p + 1].  A leaf given by
-// several active lanes takes the value of the LAST of them (the lane with the
-// highest index): what XLA's scatter keeps on the CPU, made deterministic here
-// by an atomic max of the lane index into a scratch `owner` (P int32, -1 on
-// entry); the writer clears its claim back to -1, so the scratch leaves a call
-// as it came and a caller keeps one per tree.  Inactive lanes write nothing.  Update also folds
-// new_max = max(max_p, max_i where(active, values, 0)) into *new_max, which
-// holds max_p on entry.
+// Write/update/scatter (#6, #7, #9: one entry point, sheeprl_sum_tree_write,
+// JAX's _write_body semantics): set leaf[i] to values[i] for the lanes that
+// are on (active, and for a shard's scatter owned by the shard:
+// shard_ids[i] == rank), then rebuild the touched ancestors, and only those,
+// bottom-up as __fadd_rn(tree[2v], tree[2v + 1]); a node that no lane
+// touches keeps its bits, even where it is not the sum of its children.  A
+// leaf given by several lanes takes the value of the LAST of them (the
+// highest lane index), what XLA's scatter keeps on the CPU.  Off lanes write
+// nothing.  An update also gives new_max = max(max_p, max_i where(on,
+// values, 0)); a scatter the shard's candidate max, the same fold from -inf.
+// The maxima do not depend on the order, so they are exact.
 //
-// Scatter: the write of one shard's sub-tree, for the lanes that are active
-// AND owned by the shard (shard_ids[i] == rank), with the shard's candidate
-// max_i where(owned and active, values, 0) folded into *cand_max (-inf on
-// entry) for the caller's max over shards.  The ownership test and the max
-// ride in the claim pass: a shard's scatter is the write's launches and no
-// other operation.
+// What bounds a write on an H100.  Not the bytes (a flush of 256 lanes
+// moves a few kilobytes; a TD update of 16,384 lanes on 2^20 leaves about
+// 0.7 MB, 0.2 us), but latency: d + 1 dependent levels a lane, and the
+// paths of lanes that meet.  The first port was depth + 2 launches (claim,
+// leaves, one a level: 20-22 a call); its device time was launch gaps and
+// one L2 round trip a level, its host time 20-22 enqueues.
 //
-// The writes are latency-bound walks too: d + 1 nodes per lane.  The write
-// is one launch to pick each leaf's writer (and fold the max), one to write
-// the leaves, then one launch per level, depth + 2 launches in all: a launch
-// boundary is the barrier between levels, so a block never waits on another.
-// Lanes that meet at a common ancestor write the same sum there, a benign
-// race.  Simple kernels: no persistent blocks and no level fusion yet; a
-// sharded tree's scatter is depth + 2 launches per shard.
+// What the design does about it: one launch a call, its method chosen from
+// n (kBlockLanes is the boundary).
+// - n <= kBlockLanes (the flushes: 256 and 1,024 lanes): write_block_kernel,
+//   one block.  The on lanes' (leaf, lane) keys are sorted in shared memory
+//   (a bitonic sort over as few threads as hold them), so the last lane of a
+//   leaf is the last of its run; each winner loads all d stored siblings of
+//   its path in one round trip, and the warps walk up in lockstep: where two
+//   paths meet, the touched nodes of a level are neighbours in the sorted
+//   list, and the left one takes the right one's sum by a shuffle (or from
+//   shared memory, from another warp); no block barrier a level.  The owner
+//   scratch is not used.
+// - More lanes (the TD updates: 16,384 and 65,536): write_grid_kernel, one
+//   cooperative launch of at most one block for every two SMs, up to 1,024
+//   threads a block.  The claim (an atomic max of the lane index into the
+//   scratch `owner`), a grid barrier, the leaves (the winner clears its
+//   claim), then one grid barrier a level up to the first level of at most
+//   kTopNodes nodes; there block 0 finishes the top in shared memory from
+//   marks the lanes leave in `owner`, and resets them.  (On the card a top
+//   of 2^11 nodes did best at 16,384 lanes; larger tops gained a little at
+//   65,536 and lost more at fewer lanes, smaller ones lost at both.)
+// `owner` (P int32) is -1 on entry and on exit, so a caller keeps one a
+// tree and never clears it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -397,7 +415,8 @@ __global__ void __launch_bounds__(kThreads, 2) draw_kernel(
   }
 }
 
-inline unsigned blocks_for(int n);  // blocks of kThreads for n lanes, defined with the writes below
+// blocks of kThreads for n lanes
+inline unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 // The blocks of a sample that the current device holds at once (at the most
 // shared memory a draw block takes), at most kMaxBlocks: once a device.
@@ -481,6 +500,14 @@ int launch_draw(const float* tree, int depth, const float* in, int n, float beta
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------- writes
+constexpr int kBlockLanes = 1024;   // most lanes of the one-block write: one a thread
+constexpr int kTopLevels = 11;      // the grid write hands the levels of at most 2^11 nodes to one block
+constexpr int kTopNodes = 1 << kTopLevels;
+constexpr int kTopBytes = 5 * 2 * kTopNodes;  // the top block's slots (f32) and touched flags
+constexpr int kWriteThreads = 1024; // most threads of a grid-write block (at least 256)
+constexpr int kMark = -2;           // an owner slot marking a touched node for the top (no lane's index)
+
 // a lane writes when it is active and, for a shard's scatter (shard_ids not
 // null), owned by the shard
 __device__ __forceinline__ bool lane_on(const uint8_t* __restrict__ active, const int* __restrict__ shard_ids,
@@ -488,58 +515,323 @@ __device__ __forceinline__ bool lane_on(const uint8_t* __restrict__ active, cons
   return active[i] != 0 && (shard_ids == nullptr || shard_ids[i] == rank);
 }
 
-__global__ void __launch_bounds__(kThreads) claim_kernel(
-    const int* __restrict__ leaf, const float* __restrict__ values, const uint8_t* __restrict__ active,
-    const int* __restrict__ shard_ids, int rank, int n, int* __restrict__ owner, float* new_max) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const bool act = lane_on(active, shard_ids, rank, i);
-  if (new_max != nullptr) atomic_max_f32(new_max, act ? values[i] : 0.0f);
-  if (act) atomicMax(&owner[leaf[i]], i);
+// The largest v of the block (a multiple of 32 threads), in thread 0 (every
+// thread calls it).
+__device__ __forceinline__ float block_max(float v, float* s_red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < static_cast<int>(blockDim.x / 32); ++k) v = fmaxf(v, s_red[k]);
+  }
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads) write_leaves_kernel(
-    float* __restrict__ tree, int p, const int* __restrict__ leaf, const float* __restrict__ values,
-    const uint8_t* __restrict__ active, const int* __restrict__ shard_ids, int rank, int n, int* owner) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !lane_on(active, shard_ids, rank, i)) return;
-  const int l = leaf[i];
-  // other lanes of leaf l read i or -1 here, never their own index
-  if (owner[l] == i) {
-    tree[p + l] = values[i];
-    owner[l] = -1;
+// A named barrier over the first `threads` threads of the block (a multiple
+// of 32): the threads past them have left the kernel.
+__device__ __forceinline__ void bar_first(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// How many of the block's threads before this one (of the first `threads`)
+// have flag set, and in *total how many of them have: a ballot a warp, the
+// warps' counts in s_warp, one barrier (bar_first(threads), or the whole
+// block's when threads is blockDim.x).
+__device__ __forceinline__ int count_before(bool flag, int threads, int* s_warp, int* total) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  if (threads == static_cast<int>(blockDim.x)) {
+    __syncthreads();
+  } else {
+    bar_first(threads);
+  }
+  int before = __popc(ballot & ((1u << lane) - 1)), all = 0;
+  for (int w = 0; w < threads / 32; ++w) {
+    const int c = s_warp[w];
+    before += w < warp ? c : 0;
+    all += c;
+  }
+  *total = all;
+  return before;
+}
+
+// The write of at most kBlockLanes lanes, lane t on thread t: one block, no
+// owner scratch.
+// 1. The on lanes are compacted, and their keys (leaf << 32 | lane) sorted
+//    by a bitonic sort over the first N = max(32, next power of two) threads
+//    (shuffles within a warp, a named barrier a step across warps): the
+//    last lane of a leaf is the last of its run, so it is the leaf's writer
+//    (the winner).  The winners, compacted again, are the written leaves in
+//    ascending order at positions [0, m), position q on thread q.
+// 2. Each winner loads the stored sibling of every node on its leaf's path at
+//    once (one round trip) and writes its leaf; then the warps walk up, each
+//    in lockstep over its 32 positions, with no block barrier.  At level k
+//    the touched nodes are the distinct (leaf + P) >> k, in order: runs of
+//    positions, each carried by the thread of its first position, which
+//    holds the node's new sum and the run's end.  A left child's run whose
+//    right sibling is touched takes that sibling's sum and end from the run
+//    that starts at its end: by a shuffle in its warp, else from shared
+//    memory, where the right run publishes them at that level (a wait on
+//    another warp, which never waits on this one: waits go rightward).  The
+//    right run stops there; every other run adds its stored sibling.
+//    Nothing but the paths' siblings is read from the tree, and each touched
+//    node is written once.
+__global__ void __launch_bounds__(kBlockLanes) write_block_kernel(
+    float* __restrict__ tree, int depth, const int* __restrict__ leaf, const float* __restrict__ values,
+    const uint8_t* __restrict__ active, const int* __restrict__ shard_ids, int rank, int n,
+    const float* __restrict__ max_in, float max_in_value, float* __restrict__ max_out) {
+  __shared__ unsigned long long s_key[2][kBlockLanes];
+  __shared__ unsigned s_won[kBlockLanes];  // the written leaves, ascending
+  __shared__ unsigned s_lane[kBlockLanes]; // their winning lanes
+  // a run's hand-over at its first position: its sum's bits | its end << 32,
+  // one 64-bit word, so a reader that sees the end sees the sum (kOpen: none yet)
+  __shared__ unsigned long long s_pub[kBlockLanes];
+  __shared__ int s_warp[2][kBlockLanes / 32];
+  __shared__ float s_red[kBlockLanes / 32];
+  extern __shared__ float s_sib[];  // the winners' stored siblings: depth x (m rounded up to 32)
+  constexpr unsigned long long kIdle = ~0ull;
+  constexpr unsigned long long kOpen = ~0ull;
+  const int t = threadIdx.x;
+  const unsigned p = 1u << depth;
+  const bool on = t < n && lane_on(active, shard_ids, rank, t);
+  if (max_out != nullptr) {
+    const float m = block_max(t < n ? (on ? values[t] : 0.0f) : -INFINITY, s_red);
+    if (t == 0) *max_out = fmaxf(max_in != nullptr ? *max_in : max_in_value, m);
+  }
+  int m_on = 0;
+  const int slot = count_before(on, kBlockLanes, s_warp[0], &m_on);
+  if (on) s_key[0][slot] = (static_cast<unsigned long long>(leaf[t]) << 32) | static_cast<unsigned>(t);
+  __syncthreads();
+  if (m_on == 0) return;
+  unsigned long long x = t < m_on ? s_key[0][t] : kIdle;
+  // lanes that come in leaf order (a flush's window does) need no sort
+  const bool sorted = !__syncthreads_or(t + 1 < m_on && s_key[0][t + 1] < x);
+  int threads = 32;
+  while (threads < m_on) threads <<= 1;
+  if (t >= threads) return;  // the rest synchronise by bar_first(threads)
+  int buf = 1;
+  for (int k = 2; k <= (sorted ? 1 : threads); k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned long long y;
+      if (j >= 32) {
+        s_key[buf][t] = x;
+        bar_first(threads);
+        y = s_key[buf][t ^ j];
+        buf ^= 1;
+      } else {
+        y = __shfl_xor_sync(0xffffffffu, x, j);
+      }
+      const bool keep_min = ((t & j) == 0) == ((t & k) == 0);
+      x = keep_min ? (x < y ? x : y) : (x < y ? y : x);
+    }
+  }
+  s_key[buf][t] = x;
+  bar_first(threads);
+  const unsigned long long next = t + 1 < threads ? s_key[buf][t + 1] : kIdle;
+  const bool win = x != kIdle && (next >> 32) != (x >> 32);
+  int m = 0;
+  const int pos = count_before(win, threads, s_warp[1], &m);
+  if (win) {
+    s_won[pos] = static_cast<unsigned>(x >> 32);
+    s_lane[pos] = static_cast<unsigned>(x);
+    s_pub[pos] = kOpen;
+  }
+  bar_first(threads);
+  if (t >= ((m + 31) & ~31)) return;
+
+  volatile unsigned long long* pub = s_pub;
+  const bool mine = t < m;
+  const unsigned node = (mine ? s_won[t] : 0u) + p;
+  float cur = mine ? values[s_lane[t]] : 0.0f;
+  bool alive = mine;
+  int end = t + 1;
+  const int lane = t & 31;
+  const int warp0 = t - lane;
+  const int width = (m + 31) & ~31;
+  float* sib = s_sib + t;  // level k's stored sibling at sib[k * width]
+  if (mine) {
+    for (int k = 0; k < depth; ++k) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(sib + k * width)),
+                   "l"(tree + ((node >> k) ^ 1u))
+                   : "memory");
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    tree[node] = cur;
+  }
+  for (int k = 0; k < depth; ++k) {
+    // every lane of the warp runs each step (the dead ones and those past m
+    // too), so the shuffles find the warp converged
+    const unsigned v = node >> k;
+    const bool left = (v & 1u) == 0;
+    const bool pair = alive && left && end < m && ((s_won[end < m ? end : 0] + p) >> k) == v + 1;
+    const bool give = alive && !left && t > 0 && ((s_won[t > 0 ? t - 1 : 0] + p) >> k) == v - 1;
+    if (give) pub[t] = (static_cast<unsigned long long>(end) << 32) | __float_as_uint(cur);
+    const bool here = pair && end - warp0 < 32;
+    const int src = here ? end - warp0 : lane;
+    __syncwarp();
+    const float their_cur = __shfl_sync(0xffffffffu, cur, src);
+    const int their_end = __shfl_sync(0xffffffffu, end, src);
+    float right = here ? their_cur : sib[k * width];
+    int next_end = here ? their_end : end;
+    if (pair && !here) {  // the right sibling's run is in a later warp
+      unsigned long long w;
+      do {
+        w = pub[end];
+      } while (w == kOpen);
+      right = __uint_as_float(static_cast<unsigned>(w));
+      next_end = static_cast<int>(w >> 32);
+    }
+    if (alive && !give) {
+      cur = left ? __fadd_rn(cur, right) : __fadd_rn(right, cur);
+      end = next_end;
+      tree[v >> 1] = cur;
+    }
+    alive = alive && !give;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) rebuild_level_kernel(
-    float* tree, int p, const int* __restrict__ leaf, const uint8_t* __restrict__ active,
-    const int* __restrict__ shard_ids, int rank, int n, int shift) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !lane_on(active, shard_ids, rank, i)) return;
-  const int node = (leaf[i] + p) >> shift;
-  tree[node] = __fadd_rn(tree[2 * node], tree[2 * node + 1]);
-}
-
-inline unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
-
-int launch_write(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
-                 const int* shard_ids, int rank, int n, int* owner, float* max_out, cudaStream_t s) {
-  if (depth < 1 || depth > kMaxDepth || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+// The write of more lanes: one cooperative grid-stride launch of at most one
+// block for every two SMs.  The claim (each on lane's atomic max of its index
+// into owner[leaf]), a grid barrier, the leaves (the claim's winner writes its
+// value and clears the claim), then levels 1..S, each behind a grid barrier,
+// every on lane rebuilding its node at the level (lanes that meet write the
+// same sum).  Level S is the first of at most kTopNodes nodes; its lanes
+// mark their nodes in owner[0, 2^(depth - S)) (-1 after the leaves), and
+// after one more barrier block 0 finishes the top in shared memory: the
+// top's stored slots and the marks in, each level's touched nodes (a node
+// is touched when a child is) rebuilt from their children, the marks reset
+// to -1.
+__global__ void __launch_bounds__(kWriteThreads) write_grid_kernel(
+    float* tree, int depth, const int* __restrict__ leaf, const float* __restrict__ values,
+    const uint8_t* __restrict__ active, const int* __restrict__ shard_ids, int rank, int n, int* owner,
+    const float* __restrict__ max_in, float max_in_value, float* max_out) {
+  extern __shared__ __align__(16) unsigned char top_smem[];  // block 0's: kTopBytes
+  __shared__ float s_red[kWriteThreads / 32];
+  float* s_top = reinterpret_cast<float*>(top_smem);
+  unsigned char* s_touched = top_smem + sizeof(float) * 2 * kTopNodes;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int p = 1 << depth;
-  const unsigned blocks = blocks_for(n);
-  claim_kernel<<<blocks, kThreads, 0, s>>>(leaf, values, active, shard_ids, rank, n, owner, max_out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  write_leaves_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, values, active, shard_ids, rank, n, owner);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int shift = 1; shift <= depth; ++shift) {
-    rebuild_level_kernel<<<blocks, kThreads, 0, s>>>(tree, p, leaf, active, shard_ids, rank, n, shift);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int top = depth > kTopLevels ? depth - kTopLevels : 0;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  float mx = -INFINITY;
+  for (int i = first; i < n; i += stride) {
+    const bool on = lane_on(active, shard_ids, rank, i);
+    if (on) atomicMax(owner + leaf[i], i);
+    mx = fmaxf(mx, on ? values[i] : 0.0f);
   }
-  return 0;
+  if (max_out != nullptr) {
+    mx = block_max(mx, s_red);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *max_out = max_in != nullptr ? *max_in : max_in_value;
+  }
+  grid.sync();
+  if (max_out != nullptr && threadIdx.x == 0) atomic_max_f32(max_out, mx);
+  for (int i = first; i < n; i += stride) {
+    if (!lane_on(active, shard_ids, rank, i)) continue;
+    const int l = leaf[i];
+    if (__ldcg(owner + l) == i) {  // other lanes of leaf l read i, -1 or kMark here, never their own index
+      tree[p + l] = values[i];
+      owner[l] = top == 0 ? kMark : -1;
+    }
+  }
+  for (int k = 1; k <= top; ++k) {
+    grid.sync();
+    for (int i = first; i < n; i += stride) {
+      if (!lane_on(active, shard_ids, rank, i)) continue;
+      const int v = (leaf[i] + p) >> k;
+      tree[v] = __fadd_rn(__ldcg(tree + 2 * v), __ldcg(tree + 2 * v + 1));
+      if (k == top) owner[v - (p >> top)] = kMark;
+    }
+  }
+  grid.sync();
+  if (blockIdx.x != 0) return;
+  const int base = p >> top;  // level S's first node, and its node count
+  for (int s = threadIdx.x + 1; s < 2 * base; s += blockDim.x) {
+    s_top[s] = __ldcg(tree + s);
+    s_touched[s] = s >= base && __ldcg(owner + (s - base)) == kMark;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < base; s += blockDim.x) owner[s] = -1;
+  for (int half = base >> 1; half >= 1; half >>= 1) {  // the level of `half` nodes
+    for (int v = half + threadIdx.x; v < 2 * half; v += blockDim.x) {
+      const bool touched = s_touched[2 * v] | s_touched[2 * v + 1];
+      s_touched[v] = touched;
+      if (touched) {
+        const float x = __fadd_rn(s_top[2 * v], s_top[2 * v + 1]);
+        s_top[v] = x;
+        tree[v] = x;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Once a device: the one-block write's shared memory above 48 KB allowed,
+// and the grid write's most blocks: half the SMs (a grid barrier's cost grows
+// with the blocks it waits for: on the card, fewer blocks of more threads did
+// better at 65,536 lanes), checked to be co-resident at the most threads a
+// block.
+constexpr int kBlockSibBytes = 4 * kMaxDepth * kBlockLanes;  // write_block_kernel's most dynamic shared memory
+cudaError_t write_setup(int& blocks) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && cached[dev] > 0) {
+    blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(write_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockSibBytes);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, write_grid_kernel, kWriteThreads, kTopBytes);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || sms < 1) return cudaErrorCooperativeLaunchTooLarge;
+  blocks = sms > 1 ? sms / 2 : 1;
+  if (dev < kDevices) cached[dev] = blocks;
+  return cudaSuccess;
+}
+
+// One launch for any n: write_block_kernel for n <= kBlockLanes, else
+// write_grid_kernel (cooperative).  max_out: null, or the folded max
+// max(*max_in (max_in_value when max_in is null), max_i where(on, values, 0)).
+int launch_write(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
+                 const int* shard_ids, int rank, int n, int* owner, const float* max_in, float max_in_value,
+                 float* max_out, cudaStream_t s) {
+  if (depth < 1 || depth > kMaxDepth || n < 0 || owner == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  int blocks = 0;
+  cudaError_t err = write_setup(blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= kBlockLanes) {
+    const size_t sib_bytes = 4 * static_cast<size_t>(depth) * ((n + 31) & ~31);
+    write_block_kernel<<<1, kBlockLanes, sib_bytes, s>>>(tree, depth, leaf, values, active, shard_ids, rank, n, max_in,
+                                                         max_in_value, max_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // a lane a thread where the blocks allow, at least 256 threads a block
+  int threads = (n + blocks - 1) / blocks;
+  threads = threads < 256 ? 256 : threads > kWriteThreads ? kWriteThreads : (threads + 31) & ~31;
+  const unsigned want = (static_cast<unsigned>(n) + threads - 1) / threads;
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(want < static_cast<unsigned>(blocks) ? want : blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = kTopBytes;
+  cfg.stream = s;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, write_grid_kernel, tree, depth, leaf, values, active, shard_ids, rank, n, owner,
+                           max_in, max_in_value, max_out);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -572,21 +864,18 @@ int sheeprl_sum_tree_descend(const float* tree, int depth, const float* u, int n
                             static_cast<cudaStream_t>(stream));
 }
 
-// In place on tree.  owner is (P,) int32 holding -1 on entry and on exit; new_max is null
-// for a plain write, else a device f32 holding max_p on entry.
+// In place on tree: leaf[i] set to values[i] for the lanes with active[i]
+// (and, where shard_ids is not null, shard_ids[i] == rank: one shard's
+// scatter on its sub-tree), the touched ancestors rebuilt.  owner is (P,)
+// int32 holding -1 on entry and on exit.  max_out is null, or a device f32
+// the kernel sets to max(*max_in, max_i where(lane written, values, 0)),
+// with max_in_value standing for *max_in where max_in is null: the running
+// max of an update (max_in the old max), a shard's candidate max (-inf).
+// One launch.  Returns its CUDA error (0 on success).
 int sheeprl_sum_tree_write(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
-                           int n, int* owner, float* new_max, void* stream) {
-  return launch_write(tree, depth, leaf, values, active, nullptr, 0, n, owner, new_max,
-                      static_cast<cudaStream_t>(stream));
-}
-
-// One shard's write, in place on its sub-tree: the lanes with active[i] and
-// shard_ids[i] == rank.  owner as for the write; *cand_max is a device f32
-// holding -inf on entry.
-int sheeprl_sum_tree_scatter(float* tree, int depth, const int* leaf, const float* values, const uint8_t* active,
-                             const int* shard_ids, int rank, int n, int* owner, float* cand_max, void* stream) {
-  if (shard_ids == nullptr || cand_max == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_write(tree, depth, leaf, values, active, shard_ids, rank, n, owner, cand_max,
+                           const int* shard_ids, int rank, int n, int* owner, const float* max_in, float max_in_value,
+                           float* max_out, void* stream) {
+  return launch_write(tree, depth, leaf, values, active, shard_ids, rank, n, owner, max_in, max_in_value, max_out,
                       static_cast<cudaStream_t>(stream));
 }
 

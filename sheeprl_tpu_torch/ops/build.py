@@ -23,7 +23,9 @@ import time
 from pathlib import Path
 from typing import Callable, Optional
 
-__all__ = ["BUILD_DIR", "CSRC", "CudaLibrary", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "CudaLibrary", "NVCC_FLAGS", "current_stream"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -91,3 +93,14 @@ class CudaLibrary:
             self.path = target
             self._lib = lib
             return lib
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device_index: int) -> int:
+    """The current CUDA stream of a device, as the integer a C entry takes
+    (PyTorch's raw-stream query where it has one: no stream object is made)."""
+    if _raw_stream is not None:
+        return _raw_stream(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream

@@ -22,19 +22,23 @@ counts one in ``gather_windows.launches``) or raises.
 from __future__ import annotations
 
 import ctypes
+import math
+from collections import OrderedDict
 from typing import Dict, Sequence
 
 import torch
 
-from sheeprl_tpu_torch.ops.build import CudaLibrary
+from sheeprl_tpu_torch.ops.build import CudaLibrary, current_stream
 
 __all__ = [
     "LIBRARY",
     "TRANSITIONS_LIBRARY",
+    "TransitionsPlan",
     "gather_transitions",
     "gather_transitions_plain",
     "gather_windows",
     "gather_windows_plain",
+    "transitions_plan",
     "window_cells",
 ]
 
@@ -51,17 +55,37 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheeprl_gather_windows_max_keys.restype = ctypes.c_int
 
 
+MAX_ENTRIES = 32  # csrc/gather_transitions.cu: kMaxEntries, the most outputs of one call
+
+
+class _PlanC(ctypes.Structure):
+    """``csrc/gather_transitions.cu:GatherPlan``, field for field."""
+
+    _fields_ = [
+        ("src", ctypes.c_void_p * MAX_ENTRIES),
+        ("row_bytes", ctypes.c_longlong * MAX_ENTRIES),
+        ("shift", ctypes.c_int * MAX_ENTRIES),
+        ("next", ctypes.c_int * MAX_ENTRIES),
+        ("first", ctypes.c_int * (MAX_ENTRIES + 1)),
+        ("n", ctypes.c_int),
+        ("cap", ctypes.c_int),
+        ("n_envs", ctypes.c_int),
+    ]
+
+
 def _bind_transitions(lib: ctypes.CDLL) -> None:
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    lib.sheeprl_gather_transitions.argtypes = (
-        [ptrs, ptrs, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 3
-        + [ctypes.c_void_p]
-    )
+    lib.sheeprl_gather_transitions.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ]
     lib.sheeprl_gather_transitions.restype = ctypes.c_int
     lib.sheeprl_gather_transitions_max_entries.argtypes = []
     lib.sheeprl_gather_transitions_max_entries.restype = ctypes.c_int
+    lib.sheeprl_gather_transitions_plan_bytes.argtypes = []
+    lib.sheeprl_gather_transitions_plan_bytes.restype = ctypes.c_size_t
+    if (lib.sheeprl_gather_transitions_max_entries(), lib.sheeprl_gather_transitions_plan_bytes()) != (
+        MAX_ENTRIES, ctypes.sizeof(_PlanC)
+    ):
+        raise RuntimeError("gather_transitions: the library's plan layout differs from ops/gather.py:_PlanC")
 
 
 LIBRARY = CudaLibrary("gather_windows.cu", "libsheeprl_gather", _bind)
@@ -95,7 +119,8 @@ def gather_windows_plain(
     return out
 
 
-def _check(bufs: Dict[str, torch.Tensor], starts, envs, seq_len: int, batch_size: int, name: str = "gather_windows") -> None:
+def _check(bufs: Dict[str, torch.Tensor], starts, envs, seq_len: int, batch_size: int) -> None:
+    name = "gather_windows"
     if not bufs:
         raise ValueError(f"{name}: no buffers")
     first = next(iter(bufs.values()))
@@ -176,6 +201,136 @@ def gather_transitions_plain(
     return out
 
 
+class _Layout:
+    """The outputs of one call as views of one uint8 block: entry ``e`` at a
+    byte offset that is the sum of the entries before it, each rounded up to
+    16 bytes (``csrc/gather_transitions.cu`` places them the same way).
+    ``dtypes`` are the typed views of the block the entries need (uint8
+    first); ``views`` each entry's (typed view, shape, stride, offset)."""
+
+    __slots__ = ("nbytes", "dtypes", "views")
+
+    def __init__(self, specs, flat: int):
+        self.dtypes = [torch.uint8]
+        self.views = []
+        off = 0
+        for feat, dtype in specs:
+            if dtype not in self.dtypes:
+                self.dtypes.append(dtype)
+            shape = (flat, *feat)
+            strides, step = [], 1
+            for d in reversed(shape):  # contiguous, as torch strides it
+                strides.insert(0, step)
+                step *= max(d, 1)
+            self.views.append((self.dtypes.index(dtype), shape, tuple(strides), off // dtype.itemsize))
+            off = (off + flat * math.prod(feat) * dtype.itemsize + 15) // 16 * 16
+        self.nbytes = off
+
+
+class TransitionsPlan:
+    """What a call of the transition gather needs of its rings, worked out
+    once for a set of rings (:func:`transitions_plan`): the output entries,
+    each output's feature shape and dtype, and the kernel's plan (``c``: each
+    entry's ring pointer, row bytes, successor flag and chunk width, and the
+    prefix of the entries' chunk counts).  It holds no reference to a ring."""
+
+    __slots__ = ("names", "specs", "device", "device_index", "c", "c_address", "chunks_per_row", "layouts")
+
+    def __init__(self, names, specs, device, c, chunks_per_row):
+        self.names = names
+        self.specs = specs
+        self.device = device
+        self.device_index = device.index if device.index is not None else -1
+        self.c = c
+        self.c_address = ctypes.addressof(c)  # what the C entry takes; ``c`` keeps it alive
+        self.chunks_per_row = chunks_per_row
+        self.layouts = {}  # flat -> _Layout
+
+    def layout(self, flat: int) -> _Layout:
+        layout = self.layouts.get(flat)
+        if layout is None:
+            if len(self.layouts) >= 4:
+                self.layouts.clear()
+            layout = self.layouts[flat] = _Layout(self.specs, flat)
+        return layout
+
+
+def _chunk_shift(row_bytes: int, base: int) -> int:
+    """log2 of the widest chunk (16, 4 or 1 bytes) that divides an entry's
+    row bytes and its ring's base address: every row of the ring then starts
+    on a chunk (every output starts on 16 bytes of the call's block)."""
+    for shift in (4, 2):
+        if (row_bytes | base) % (1 << shift) == 0:
+            return shift
+    return 0
+
+
+def transitions_plan(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str] = ()) -> TransitionsPlan:
+    """Check the rings and build their plan (no device work): stored keys
+    first, then ``next_<k>`` for ``next_keys`` (a stored key named like a
+    successor output is replaced by it, as in the plain version)."""
+    name = "gather_transitions"
+    if not bufs:
+        raise ValueError(f"{name}: no buffers")
+    first = next(iter(bufs.values()))
+    cap, n_envs = first.shape[:2]
+    for k, buf in bufs.items():
+        if buf.device != first.device:
+            raise ValueError(f"{name}: '{k}' is on {buf.device}, the rings on {first.device}")
+        if buf.dim() < 2 or tuple(buf.shape[:2]) != (cap, n_envs):
+            raise ValueError(f"{name}: '{k}' is {tuple(buf.shape)}, the rings are ({cap}, {n_envs}, ...)")
+        if not buf.is_contiguous():
+            raise ValueError(f"{name}: '{k}' must be contiguous")
+    missing = [k for k in next_keys if k not in bufs]
+    if missing:
+        raise KeyError(f"{name}: next keys {missing} are not buffers")
+    nxt = [(f"next_{k}", k, 1) for k in next_keys]
+    entries = [(k, k, 0) for k in bufs if k not in {out for out, _, _ in nxt}] + nxt
+    if len(entries) > MAX_ENTRIES:
+        raise ValueError(f"{name}: {len(entries)} outputs, the kernel takes at most {MAX_ENTRIES}")
+    c = _PlanC()
+    c.n, c.cap, c.n_envs = len(entries), int(cap), int(n_envs)
+    chunks = 0
+    for e, (_, k, flag) in enumerate(entries):
+        buf = bufs[k]
+        row_bytes = buf[0, 0].numel() * buf.element_size()
+        shift = _chunk_shift(row_bytes, buf.data_ptr())
+        c.src[e], c.row_bytes[e], c.shift[e], c.next[e], c.first[e] = buf.data_ptr(), row_bytes, shift, flag, chunks
+        chunks += row_bytes >> shift
+    c.first[len(entries)] = chunks
+    specs = tuple((tuple(bufs[k].shape[2:]), bufs[k].dtype) for _, k, _ in entries)
+    return TransitionsPlan(tuple(out for out, _, _ in entries), specs, first.device, c, chunks)
+
+
+_PLANS: "OrderedDict[tuple, TransitionsPlan]" = OrderedDict()
+_PLANS_KEPT = 8  # a cache's rings make one plan; a few caches (or tests) share the process
+
+
+def _plan_for(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str]) -> TransitionsPlan:
+    """The plan of these rings, from the cache when every ring's pointer,
+    shape and dtype (and the next keys) are those it was built for: a ring
+    replaced by another tensor gets a new plan, so no stale pointer is
+    launched."""
+    key = (tuple(next_keys), *[(k, v.data_ptr(), v.shape, v.dtype) for k, v in bufs.items()])
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = transitions_plan(bufs, next_keys)
+        _PLANS[key] = plan
+        if len(_PLANS) > _PLANS_KEPT:
+            _PLANS.popitem(last=False)
+    return plan
+
+
+def _check_indices(plan: TransitionsPlan, rows: torch.Tensor, envs: torch.Tensor) -> None:
+    for arg, t in (("rows", rows), ("envs", envs)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"gather_transitions: {arg} must be a contiguous 1-d int32 tensor")
+        if t.device != plan.device:
+            raise ValueError(f"gather_transitions: {arg} is on {t.device}, the rings on {plan.device}")
+    if rows.shape != envs.shape:
+        raise ValueError(f"gather_transitions: {rows.shape[0]} rows, {envs.shape[0]} envs")
+
+
 def gather_transitions(
     bufs: Dict[str, torch.Tensor], rows: torch.Tensor, envs: torch.Tensor, *, next_keys: Sequence[str] = ()
 ) -> Dict[str, torch.Tensor]:
@@ -185,44 +340,36 @@ def gather_transitions(
 
     CPU rings take :func:`gather_transitions_plain`; CUDA rings launch the
     kernel in ``csrc/gather_transitions.cu`` once for every key (one count
-    in ``gather_transitions.launches``) or raise.  ``rows`` must lie in
-    [0, cap) and ``envs`` in [0, n_envs)."""
-    if rows.device.type == "cpu":
-        return gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
-    if rows.device.type != "cuda":
+    in ``gather_transitions.launches``) or raise.  The rings' checks and the
+    kernel's table are made once per set of rings (:func:`_plan_for`); a
+    call checks the indices, allocates one block for all outputs (each a
+    contiguous view of it, 16-byte aligned) and makes one ``ctypes`` call.
+    ``rows`` must lie in [0, cap) and ``envs`` in [0, n_envs)."""
+    if not rows.is_cuda:
+        if rows.device.type == "cpu":
+            return gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
         raise ValueError(f"gather_transitions: no kernel for device {rows.device}")
-    _check(bufs, rows, envs, 1, 1, "gather_transitions")
-    missing = [k for k in next_keys if k not in bufs]
-    if missing:
-        raise KeyError(f"gather_transitions: next keys {missing} are not buffers")
-    lib = TRANSITIONS_LIBRARY.load()
-    # a stored key named like a successor output is replaced by it, as in the plain version
-    nxt = [(f"next_{k}", k, 1) for k in next_keys]
-    entries = [(k, k, 0) for k in bufs if k not in {name for name, _, _ in nxt}] + nxt
-    if len(entries) > lib.sheeprl_gather_transitions_max_entries():
-        raise ValueError(
-            f"gather_transitions: {len(entries)} outputs, the kernel takes at most "
-            f"{lib.sheeprl_gather_transitions_max_entries()}"
+    plan = _plan_for(bufs, next_keys)
+    if not (
+        rows.dtype is torch.int32 and envs.dtype is torch.int32 and rows.dim() == 1 and rows.is_contiguous()
+        and envs.is_contiguous() and rows.shape == envs.shape
+        and rows.get_device() == plan.device_index == envs.get_device()
+    ):
+        _check_indices(plan, rows, envs)
+    flat = rows.shape[0]
+    layout = plan.layout(flat)
+    block = rows.new_empty((layout.nbytes,), dtype=torch.uint8)
+    typed = [block] + [block.view(dtype) for dtype in layout.dtypes[1:]]
+    outs = [typed[b].as_strided(shape, stride, off) for b, shape, stride, off in layout.views]
+    if flat and plan.chunks_per_row:
+        lib = TRANSITIONS_LIBRARY.load()
+        err = lib.sheeprl_gather_transitions(
+            plan.c_address, block.data_ptr(), rows.data_ptr(), envs.data_ptr(), flat, current_stream(plan.device_index)
         )
-    cap, n_envs = next(iter(bufs.values())).shape[:2]
-    flat = int(rows.shape[0])
-    out = {
-        name: torch.empty((flat, *bufs[k].shape[2:]), dtype=bufs[k].dtype, device=rows.device)
-        for name, k, _ in entries
-    }
-    n = len(entries)
-    srcs = (ctypes.c_void_p * n)(*[bufs[k].data_ptr() for _, k, _ in entries])
-    dsts = (ctypes.c_void_p * n)(*[out[name].data_ptr() for name, _, _ in entries])
-    row_bytes = (ctypes.c_longlong * n)(*[bufs[k][0, 0].numel() * bufs[k].element_size() for _, k, _ in entries])
-    nxt = (ctypes.c_int * n)(*[flag for _, _, flag in entries])
-    err = lib.sheeprl_gather_transitions(
-        srcs, dsts, row_bytes, nxt, n, rows.data_ptr(), envs.data_ptr(), flat, int(cap), int(n_envs),
-        torch.cuda.current_stream(rows.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"gather_transitions kernel launch failed: cudaError {err}")
-    gather_transitions.launches += 1
-    return out
+        if err != 0:
+            raise RuntimeError(f"gather_transitions kernel launch failed: cudaError {err}")
+        gather_transitions.launches += 1
+    return dict(zip(plan.names, outs))
 
 
 gather_transitions.launches = 0

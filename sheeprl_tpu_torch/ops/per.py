@@ -23,8 +23,13 @@ and ``sum_tree_scatter`` (#9).  The tree is the 1-based heap of
   sub-tree, and the shard's candidate running max
   ``max(where(active & owned, values, 0))``, returned.
 
-The writes pick each leaf's writer in a (P,) int32 scratch that holds -1
-on entry and again on exit: a caller that writes often keeps one from
+The writes (#6, #7, #9) are one entry of the library and one launch a
+call, whatever the lane count: up to 1,024 lanes (``kBlockLanes``) one
+block sorts them by leaf and rebuilds the touched nodes in shared memory; more lanes take one cooperative launch (a grid barrier a
+level up to the top 2^11 nodes, which one block finishes).  The running max
+and a shard's candidate max come out of the same launch.  The grid write
+picks each leaf's writer in a (P,) int32 scratch that holds -1 on entry and
+again on exit: a caller that writes often keeps one from
 :func:`owner_scratch` and passes it as ``owner`` (``PriorityTree`` does), so a
 call costs the lanes' paths and no P-sized fill.
 
@@ -54,7 +59,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from sheeprl_tpu_torch.ops.build import CudaLibrary
+from sheeprl_tpu_torch.ops.build import CudaLibrary, current_stream
 
 __all__ = [
     "LIBRARY",
@@ -80,12 +85,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheeprl_sum_tree_draw_scratch_bytes.restype = size
     lib.sheeprl_sum_tree_sample.argtypes = [ptr, i32, ptr, i32, f32, f32, ptr, ptr, i32, ptr, ptr, ptr, size, ptr]
     lib.sheeprl_sum_tree_sample.restype = i32
-    lib.sheeprl_sum_tree_write.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr]
+    lib.sheeprl_sum_tree_write.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, f32, ptr, ptr]
     lib.sheeprl_sum_tree_write.restype = i32
     lib.sheeprl_sum_tree_descend.argtypes = [ptr, i32, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, size, ptr]
     lib.sheeprl_sum_tree_descend.restype = i32
-    lib.sheeprl_sum_tree_scatter.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
-    lib.sheeprl_sum_tree_scatter.restype = i32
 
 
 LIBRARY = CudaLibrary("sum_tree.cu", "libsheeprl_sum_tree", _bind)
@@ -225,11 +228,6 @@ def _check_tree(tree: torch.Tensor, depth: int, name: str) -> None:
         raise ValueError(f"{name}: a tree of depth {depth} has {2 << depth} slots, got {tree.shape[0]}")
 
 
-def _device(tree: torch.Tensor, name: str) -> None:
-    if tree.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {tree.device}")
-
-
 def _device_is_cpu(tree: torch.Tensor, name: str) -> None:
     """For a tree that is not on a card: the plain version runs on the CPU
     only."""
@@ -246,11 +244,12 @@ def _on(x, tree: torch.Tensor, dtype: torch.dtype) -> bool:
     )
 
 
-def _f32_on(x, tree: torch.Tensor) -> torch.Tensor:
-    """``x`` as contiguous f32 on the tree's device."""
-    if _on(x, tree, torch.float32):
+def _lanes(x, tree: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as it is when it is contiguous ``dtype`` on the tree's card, else
+    converted to flat contiguous ``dtype`` there."""
+    if _on(x, tree, dtype):
         return x
-    return torch.as_tensor(x, device=tree.device).to(torch.float32).reshape(-1).contiguous()
+    return torch.as_tensor(x, device=tree.device).reshape(-1).to(dtype).contiguous()
 
 
 def _excl_kernel_args(tree: torch.Tensor, exclude_idx, exclude_active):
@@ -278,15 +277,6 @@ def _scratch_for(scratch, tree: torch.Tensor, depth: int, n_excl: int, sample: b
     if not _on(scratch, tree, torch.int32):
         raise ValueError(f"{name}: scratch must be contiguous int32 on {tree.device} (draw_scratch)")
     return scratch
-
-
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(tree: torch.Tensor) -> int:
-    if _raw_stream is not None:
-        return _raw_stream(tree.get_device())
-    return torch.cuda.current_stream(tree.device).cuda_stream
 
 
 _CUDA_ERROR_INVALID_VALUE = 1
@@ -318,7 +308,7 @@ def sum_tree_sample(
             tree, r01, beta, count, depth=depth, exclude_idx=exclude_idx, exclude_active=exclude_active
         )
     _check_tree(tree, depth, "sum_tree_sample")
-    r01 = _f32_on(r01, tree)
+    r01 = _lanes(r01, tree, torch.float32)
     excl, eact, n_excl = _excl_kernel_args(tree, exclude_idx, exclude_active)
     scratch = _scratch_for(scratch, tree, depth, n_excl, True, "sum_tree_sample")
     lib = LIBRARY.load()
@@ -327,19 +317,18 @@ def sum_tree_sample(
     err = lib.sheeprl_sum_tree_sample(
         tree.data_ptr(), int(depth), r01.data_ptr(), n, float(beta), float(count),
         None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(), n_excl,
-        leaf.data_ptr(), w.data_ptr(), scratch.data_ptr(), 4 * scratch.numel(), _stream(tree),
+        leaf.data_ptr(), w.data_ptr(), scratch.data_ptr(), 4 * scratch.numel(), current_stream(tree.get_device()),
     )
     _launched(err, tree, "sum_tree_sample", scratch, depth, n_excl)
     sum_tree_sample.launches += 1
     return leaf, w
 
 
-def _write_args(tree: torch.Tensor, leaf_idx, values, active):
-    leaf = torch.as_tensor(leaf_idx, device=tree.device).reshape(-1).to(torch.int32).contiguous()
-    vals = torch.as_tensor(values, device=tree.device).reshape(-1).to(torch.float32).contiguous()
-    act = torch.as_tensor(active, device=tree.device).reshape(-1).to(torch.bool).contiguous()
+def _write_args(tree: torch.Tensor, leaf_idx, values, active, name: str):
+    leaf, vals = _lanes(leaf_idx, tree, torch.int32), _lanes(values, tree, torch.float32)
+    act = _lanes(active, tree, torch.bool)
     if not leaf.numel() == vals.numel() == act.numel():
-        raise ValueError(f"sum-tree write: {leaf.numel()} leaves, {vals.numel()} values, {act.numel()} flags")
+        raise ValueError(f"{name}: {leaf.numel()} leaves, {vals.numel()} values, {act.numel()} flags")
     return leaf, vals, act
 
 
@@ -348,20 +337,22 @@ def owner_scratch(depth: int, device) -> torch.Tensor:
     return torch.full((1 << depth,), -1, dtype=torch.int32, device=device)
 
 
-def _check_owner(owner: torch.Tensor, tree: torch.Tensor, depth: int, name: str) -> None:
-    if owner.dtype != torch.int32 or owner.device != tree.device or owner.numel() != 1 << depth or not owner.is_contiguous():
-        raise ValueError(f"{name}: owner must be {1 << depth} contiguous int32 on {tree.device}")
-
-
-def _launch_write(tree, depth, leaf, vals, act, new_max: Optional[torch.Tensor], owner, name: str) -> None:
+def _launch_write(tree, depth, leaf, vals, act, sid, rank: int, max_in, max_out, owner, name: str) -> None:
+    """One launch of ``csrc/sum_tree.cu:sheeprl_sum_tree_write``: the lanes
+    ``sid == rank`` of them where ``sid`` is given; ``max_out`` (a 0-d f32 on
+    the card, or None) set to ``max(max_in, max(where(written, vals, 0)))``,
+    ``max_in`` a 0-d f32 on the card or a number."""
     lib = LIBRARY.load()
     if owner is None:
         owner = owner_scratch(depth, tree.device)
-    _check_owner(owner, tree, depth, name)
+    elif not (_on(owner, tree, torch.int32) and owner.numel() == 1 << depth):
+        raise ValueError(f"{name}: owner must be {1 << depth} contiguous int32 on {tree.device}")
+    in_ptr = max_in.data_ptr() if _on(max_in, tree, torch.float32) and max_in.numel() == 1 else None
     err = lib.sheeprl_sum_tree_write(
-        tree.data_ptr(), int(depth), leaf.data_ptr(), vals.data_ptr(), act.data_ptr(), int(leaf.numel()),
-        owner.data_ptr(), None if new_max is None else new_max.data_ptr(),
-        torch.cuda.current_stream(tree.device).cuda_stream,
+        tree.data_ptr(), int(depth), leaf.data_ptr(), vals.data_ptr(), act.data_ptr(),
+        None if sid is None else sid.data_ptr(), int(rank), leaf.numel(), owner.data_ptr(),
+        in_ptr, float("-inf") if max_in is None or in_ptr is not None else float(max_in),
+        None if max_out is None else max_out.data_ptr(), current_stream(tree.get_device()),
     )
     if err != 0:
         owner.fill_(-1)  # a launch that failed part-way may leave claims behind
@@ -370,34 +361,35 @@ def _launch_write(tree, depth, leaf, vals, act, new_max: Optional[torch.Tensor],
 
 def sum_tree_write(tree: torch.Tensor, leaf_idx, values, active, *, depth: int, owner=None) -> torch.Tensor:
     """Set ``leaf_idx`` to ``values`` where ``active`` and rebuild the touched
-    ancestors, in place on ``tree`` (returned).  Leaves must lie in [0, P).
-    ``owner`` is a scratch from :func:`owner_scratch` (by default one is made
-    for the call)."""
-    if tree.device.type == "cpu":
+    ancestors, in place on ``tree`` (returned): one launch.  Leaves must lie
+    in [0, P).  ``owner`` is a scratch from :func:`owner_scratch` (by default
+    one is made for the call)."""
+    if not tree.is_cuda:
+        _device_is_cpu(tree, "sum_tree_write")
         return sum_tree_write_plain(tree, leaf_idx, values, active, depth=depth)
-    _device(tree, "sum_tree_write")
     _check_tree(tree, depth, "sum_tree_write")
-    leaf, vals, act = _write_args(tree, leaf_idx, values, active)
+    leaf, vals, act = _write_args(tree, leaf_idx, values, active, "sum_tree_write")
     if leaf.numel():
-        _launch_write(tree, depth, leaf, vals, act, None, owner, "sum_tree_write")
+        _launch_write(tree, depth, leaf, vals, act, None, 0, None, None, owner, "sum_tree_write")
         sum_tree_write.launches += 1
     return tree
 
 
 def sum_tree_update(tree: torch.Tensor, max_p, leaf_idx, priorities, active, *, depth: int, owner=None) -> torch.Tensor:
     """The write of :func:`sum_tree_write` with ``priorities``, in place on
-    ``tree``; returns the new running max (0-d f32 on the tree's device)."""
-    if tree.device.type == "cpu":
+    ``tree``; returns the new running max (0-d f32 on the tree's device),
+    computed in the same launch."""
+    if not tree.is_cuda:
+        _device_is_cpu(tree, "sum_tree_update")
         return sum_tree_update_plain(tree, max_p, leaf_idx, priorities, active, depth=depth)
-    _device(tree, "sum_tree_update")
     _check_tree(tree, depth, "sum_tree_update")
-    leaf, pri, act = _write_args(tree, leaf_idx, priorities, active)
+    leaf, pri, act = _write_args(tree, leaf_idx, priorities, active, "sum_tree_update")
     if not leaf.numel():
         raise ValueError("sum_tree_update: no lanes (the running max of nothing is undefined)")
-    new_max = torch.as_tensor(max_p, dtype=torch.float32, device=tree.device).reshape(1).clone()
-    _launch_write(tree, depth, leaf, pri, act, new_max, owner, "sum_tree_update")
+    new_max = tree.new_empty(())
+    _launch_write(tree, depth, leaf, pri, act, None, 0, max_p, new_max, owner, "sum_tree_update")
     sum_tree_update.launches += 1
-    return new_max[0]
+    return new_max
 
 
 def sum_tree_descend(
@@ -413,7 +405,7 @@ def sum_tree_descend(
         _device_is_cpu(tree, "sum_tree_descend")
         return sum_tree_descend_plain(tree, u, depth=depth, exclude_idx=exclude_idx, exclude_active=exclude_active)
     _check_tree(tree, depth, "sum_tree_descend")
-    u = _f32_on(u, tree)
+    u = _lanes(u, tree, torch.float32)
     excl, eact, n_excl = _excl_kernel_args(tree, exclude_idx, exclude_active)
     scratch = _scratch_for(scratch, tree, depth, n_excl, False, "sum_tree_descend")
     lib = LIBRARY.load()
@@ -423,7 +415,7 @@ def sum_tree_descend(
         tree.data_ptr(), int(depth), u.data_ptr(), n,
         None if excl is None else excl.data_ptr(), None if eact is None else eact.data_ptr(), n_excl,
         leaf.data_ptr(), mass.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        0 if scratch is None else 4 * scratch.numel(), _stream(tree),
+        0 if scratch is None else 4 * scratch.numel(), current_stream(tree.get_device()),
     )
     _launched(err, tree, "sum_tree_descend", scratch, depth, n_excl)
     sum_tree_descend.launches += 1
@@ -436,32 +428,22 @@ def sum_tree_scatter(
     """One shard's write: ``local_leaf`` set to ``values`` for the lanes with
     ``active`` and ``shard_ids == rank`` (their leaves in [0, P)), ancestors
     rebuilt, in place on ``tree``; returns ``(tree, cand_max)`` with the
-    shard's ``max(where(those lanes, values, 0))`` as a 0-d f32 tensor.
-    ``owner`` as for :func:`sum_tree_write`."""
-    if tree.device.type == "cpu":
+    shard's ``max(where(those lanes, values, 0))`` as a 0-d f32 tensor, from
+    the same launch.  ``owner`` as for :func:`sum_tree_write`."""
+    if not tree.is_cuda:
+        _device_is_cpu(tree, "sum_tree_scatter")
         return sum_tree_scatter_plain(tree, local_leaf, values, active, shard_ids, rank, depth=depth)
-    _device(tree, "sum_tree_scatter")
     _check_tree(tree, depth, "sum_tree_scatter")
-    leaf, vals, act = _write_args(tree, local_leaf, values, active)
-    sid = torch.as_tensor(shard_ids, device=tree.device).reshape(-1).to(torch.int32).contiguous()
+    leaf, vals, act = _write_args(tree, local_leaf, values, active, "sum_tree_scatter")
+    sid = _lanes(shard_ids, tree, torch.int32)
     if sid.numel() != leaf.numel():
         raise ValueError(f"sum_tree_scatter: {leaf.numel()} leaves, {sid.numel()} shard ids")
     if not leaf.numel():
         raise ValueError("sum_tree_scatter: no lanes (the max of nothing is undefined)")
-    lib = LIBRARY.load()
-    if owner is None:
-        owner = owner_scratch(depth, tree.device)
-    _check_owner(owner, tree, depth, "sum_tree_scatter")
-    cand = torch.full((1,), float("-inf"), dtype=torch.float32, device=tree.device)
-    err = lib.sheeprl_sum_tree_scatter(
-        tree.data_ptr(), int(depth), leaf.data_ptr(), vals.data_ptr(), act.data_ptr(), sid.data_ptr(), int(rank),
-        int(leaf.numel()), owner.data_ptr(), cand.data_ptr(), torch.cuda.current_stream(tree.device).cuda_stream,
-    )
-    if err != 0:
-        owner.fill_(-1)  # a launch that failed part-way may leave claims behind
-        raise RuntimeError(f"sum_tree_scatter kernel launch failed: cudaError {err}")
+    cand = tree.new_empty(())
+    _launch_write(tree, depth, leaf, vals, act, sid, rank, None, cand, owner, "sum_tree_scatter")
     sum_tree_scatter.launches += 1
-    return tree, cand[0]
+    return tree, cand
 
 
 sum_tree_sample.launches = 0

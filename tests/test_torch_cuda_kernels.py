@@ -623,3 +623,127 @@ def test_sample_of_more_draws_than_resident_threads(n_excl):
         leaf_p, w_p = per.sum_tree_sample_plain(tree.tree, r01, 0.6, n_leaves, depth=tree.depth, exclude_idx=excl)
         torch.cuda.synchronize()
         assert torch.equal(leaf, leaf_p) and ((w - w_p).abs() <= 1e-6 * w_p.abs()).all()
+
+
+def _device_ops(fn) -> int:
+    """The device operations (kernels, fills, copies) one call of ``fn``
+    makes, counted by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["write", "update", "scatter"])
+@pytest.mark.parametrize("lanes", [1, 255, 256, 1024, 1025, 16384, 65536])
+def test_sum_tree_writes_one_launch_at_the_method_boundaries(kind, lanes):
+    """#6, #7 and #9 at lane counts on both sides of the one-block method
+    (1,024 lanes) and at the path's shapes, on a 250,000-leaf tree whose
+    internal nodes are not the sums of their children: one device operation
+    a call, the tree equal to the plain version's from slot 1 (untouched
+    nodes keep their bits), slot 0 untouched, the maxima exact, the owner
+    scratch clean."""
+    from sheeprl_tpu_torch.ops import per
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(lanes + len(kind))
+    n_leaves = 250000
+    tree = _tree(n_leaves, torch.rand(n_leaves, generator=g, device="cuda"))
+    p = 1 << tree.depth
+    tree.tree[1:p] = torch.randint(0, 1000, (p - 1,), generator=g, device="cuda").float() * 0.37
+    leaf = torch.randint(0, n_leaves, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+    leaf[lanes // 2 : lanes // 2 + lanes // 4] = leaf[: lanes // 4]
+    vals = torch.rand(lanes, generator=g, device="cuda") * 3
+    vals[lanes // 2 : lanes // 2 + lanes // 8] = vals[: lanes // 8]
+    active = torch.rand(lanes, generator=g, device="cuda") < 0.7
+    active[0] = True
+    shard_ids = torch.randint(0, 4, (lanes,), generator=g, device="cuda", dtype=torch.int32)
+    shard_ids[0] = 1
+    max_p = torch.tensor(0.5, device="cuda")
+    owner = per.owner_scratch(tree.depth, "cuda")
+    base = tree.tree.clone()
+    a, b = base.clone(), base.clone()
+    kernel = {
+        "write": lambda t: (per.sum_tree_write(t, leaf, vals, active, depth=tree.depth, owner=owner), None)[1],
+        "update": lambda t: per.sum_tree_update(t, max_p, leaf, vals, active, depth=tree.depth, owner=owner),
+        "scatter": lambda t: per.sum_tree_scatter(t, leaf, vals, active, shard_ids, 1, depth=tree.depth, owner=owner)[1],
+    }[kind]
+    plain = {
+        "write": lambda t: (per.sum_tree_write_plain(t, leaf, vals, active, depth=tree.depth), None)[1],
+        "update": lambda t: per.sum_tree_update_plain(t, max_p, leaf, vals, active, depth=tree.depth),
+        "scatter": lambda t: per.sum_tree_scatter_plain(t, leaf, vals, active, shard_ids, 1, depth=tree.depth)[1],
+    }[kind]
+    counter = getattr(per, f"sum_tree_{kind}")
+    before = counter.launches
+    got, want = kernel(a), plain(b)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(a[1:], b[1:]) and float(a[0]) == float(base[0])
+    if want is not None:
+        assert got.shape == () and float(got) == float(want)
+    assert bool((owner == -1).all())
+    assert _device_ops(lambda: kernel(a)) == 1
+
+
+@pytest.mark.cuda
+def test_gather_transitions_after_a_ring_is_replaced():
+    """A ring replaced by a new tensor behind the same key (and the old one
+    freed, so its memory may come back) between calls: each call's bytes are
+    those of the rings it was given."""
+    from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cap, n_envs, flat = 50, 4, 777
+    bufs = {"obs": torch.randn(cap, n_envs, 24, generator=g, device="cuda"),
+            "done": torch.randint(0, 2, (cap, n_envs, 1), generator=g, device="cuda", dtype=torch.uint8)}
+    rows = torch.randint(0, cap, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    envs = torch.randint(0, n_envs, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    for step in range(4):
+        out = gather_transitions(bufs, rows, envs, next_keys=("obs",))
+        ref = gather_transitions_plain(bufs, rows, envs, next_keys=("obs",))
+        torch.cuda.synchronize()
+        for k in ref:
+            assert torch.equal(out[k], ref[k]), (step, k)
+        if step == 0:
+            bufs["obs"] = torch.randn(cap, n_envs, 24, generator=g, device="cuda")  # a new ring, the old one alive
+        else:
+            del out, ref
+            bufs = dict(bufs, done=None)
+            bufs["done"] = torch.randint(0, 2, (cap, n_envs, 1), generator=g, device="cuda", dtype=torch.uint8) + step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 4, 8, 16])
+@pytest.mark.parametrize("flat", [1, 1000])
+def test_gather_transitions_on_a_misaligned_ring(offset, flat):
+    """A ring whose base is ``offset`` bytes into its allocation (a slice of
+    a larger buffer) beside aligned rings, for one row and for 1,000: bytes
+    exact, one launch."""
+    from sheeprl_tpu_torch.ops.gather import gather_transitions, gather_transitions_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(offset + flat)
+    cap, n_envs = 31, 3
+    raw = torch.randint(0, 256, (cap * n_envs * 96 + offset,), generator=g, device="cuda", dtype=torch.uint8)
+    bufs = {"odd": raw[offset:].view(cap, n_envs, 96),
+            "obs": torch.randn(cap, n_envs, 24, generator=g, device="cuda"),
+            "flag": torch.randint(0, 2, (cap, n_envs), generator=g, device="cuda", dtype=torch.uint8)}
+    rows = torch.randint(0, cap, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    rows[0] = cap - 1
+    envs = torch.randint(0, n_envs, (flat,), generator=g, device="cuda", dtype=torch.int32)
+    before = gather_transitions.launches
+    out = gather_transitions(bufs, rows, envs, next_keys=("odd", "flag"))
+    ref = gather_transitions_plain(bufs, rows, envs, next_keys=("odd", "flag"))
+    torch.cuda.synchronize()
+    assert gather_transitions.launches == before + 1
+    assert list(out) == list(ref)
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype and out[k].shape == ref[k].shape and torch.equal(out[k], ref[k]), k
