@@ -233,6 +233,21 @@ SEQ_TOL = 1e-4
 # through the plain loop: two formulations of the same gradient, 64 steps
 # deep, each from its own forward; of each gradient's largest magnitude
 SEQ_GRAD_RTOL = 1e-3
+# the same forward against the plain loop in float64 (gru_sequence_f64): at
+# the DV3-S cell's shape the f32 loop itself reads 0.77-0.97e-6 and the
+# cluster route emulated in 3xTF32 0.74-0.95e-6, where the same route with a
+# ~16-bit product (split bf16, h1 (w1 + w2) + h2 w1) reads 3.3-4.1e-6
+# (tests/test_torch_seq_gru_routes.py, on the CPU, seeds 0-2): the bound
+# that holds the kernels' products to f32 accuracy, which SEQ_TOL cannot
+SEQ_F32_TOL = 2e-6
+# the cluster route's input product (3xTF32, K = X in one slice) against the
+# f32 product: sums in another order, of the largest magnitude of the result
+INPUT_PRODUCT_RTOL = 1e-5
+# the sequence shapes: the decoupled DV3-S cell (T = 64, B = 16, H = X = 512)
+# and T = 16 for the per-step slope; the smallest cluster width at an odd
+# batch; and the grid route at H = 768, X = 256 (eligible for the scan,
+# W[:H] too large for 16 blocks)
+SEQ_SHAPES = ((64, 16, 512, 512), (16, 16, 512, 512), (5, 3, 128, 128), (5, 3, 768, 256), (64, 16, 768, 256))
 
 # SAC on DMC walker-walk, as the port composes `exp=sac_dmc_walker_walk
 # buffer.prioritized=True buffer.per_kernel=pallas buffer.device_cache=True
@@ -318,26 +333,32 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3, ops: bool = False):
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3, ops: bool = False, windows: int = 1):
     """Device time per call: the kernels ``fn`` launches, summed over a
     ``torch.profiler`` window of ``iters`` calls.  Unlike :func:`time_ms` it
     leaves out the host's time between launches.  With ``ops``, also the
-    device operations (kernels, fills, copies) a call makes in that window."""
+    device operations (kernels, fills, copies) a call makes in that window.
+    A window can drop records (PERF.md 7): with ``windows`` > 1, that many
+    are taken and the one with the most records is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    best = (-1, 0.0)
+    for _ in range(windows):
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(ev, "self_device_time_total", None)
-            total += ev.self_cuda_time_total if t is None else t
-            count += ev.count
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if t is None else t
+                count += ev.count
+        best = max(best, (count, total), key=lambda r: r[0])
+    count, total = best
     return (total / 1e3 / iters, count / iters) if ops else total / 1e3 / iters
 
 
@@ -667,53 +688,132 @@ def seq_gru_bound_ms(steps: int, batch: int, hidden: int, xdim: int) -> tuple:
     """Least time for the sequence: W, xs, h0, init_rec, is_first, gamma and
     beta read once and hs written once at the memory rate, against the T
     products' 2*T*B*K*3H operations plus ~12 per element of each (B, 3H)
-    LayerNorm and gates, at the f32 rate."""
+    LayerNorm and gates.  The operations on the units the cluster route
+    uses: the whole product (the input half, then the recurrent half) as
+    three TF32 passes on the tensor cores, the gates at the f32 rate.
+    Returns ``(ms, bound_by, cuda_cores_ms)``; the last is the bound with
+    the whole product at the f32 rate, as earlier slices stated it."""
     k, n = hidden + xdim, 3 * hidden
     nbytes = 4 * (k * n + steps * batch * xdim + 2 * batch * hidden + steps * batch + 2 * n + steps * batch * hidden)
-    ops = 2 * steps * batch * k * n + 12 * steps * batch * n
-    return bound(nbytes, ops)
+    gates = 12 * steps * batch * n
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = (3 * 2 * steps * batch * k * n / PEAK_FLOPS["tf32"] + gates / PEAK_FLOPS["float32"]) * 1e3
+    cuda_cores = bound(nbytes, 2 * steps * batch * k * n + gates)[0]
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (cuda_cores,)
+
+
+def input_product_bound_ms(m: int, xdim: int, n: int) -> tuple:
+    """Least time for (M, X) @ (X, N) in f32: the operands read once and the
+    result written once, against 2*M*X*N operations as three TF32 passes.
+    Returns ``(ms, bound_by, cuda_cores_ms)``."""
+    nbytes = 4 * (m * xdim + xdim * n + m * n)
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = 3 * 2 * m * xdim * n / PEAK_FLOPS["tf32"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (bound(nbytes, 2 * m * xdim * n)[0],)
+
+
+def gru_sequence_f64(torch, h0, xs, w, gamma, beta, is_first, init_rec, eps: float = 1e-6):
+    """The sequence's plain loop in float64 (``gru_sequence_plain`` is f32):
+    the reference that :data:`SEQ_F32_TOL` bounds."""
+    h0, xs, w, gamma, beta, is_first, init_rec = (a.detach().double() for a in (h0, xs, w, gamma, beta, is_first, init_rec))
+    hidden = h0.shape[1]
+    h, out = h0, []
+    for t in range(xs.shape[0]):
+        first = is_first[t].reshape(-1, 1)
+        hg = (1.0 - first) * h + first * init_rec
+        z = torch.cat([hg, xs[t]], -1) @ w
+        mu = z.mean(-1, keepdim=True)
+        var = torch.clamp((z * z).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        parts = (z - mu) * torch.rsqrt(var + eps) * gamma + beta
+        reset = torch.sigmoid(parts[:, :hidden])
+        cand = torch.tanh(reset * parts[:, hidden : 2 * hidden])
+        update = torch.sigmoid(parts[:, 2 * hidden :] - 1.0)
+        h = update * cand + (1.0 - update) * hg
+        out.append(h)
+    return torch.stack(out)
+
+
+def seq_inputs(torch, g, steps: int, batch: int, hidden: int, xdim: int) -> list:
+    """Seeded sequence inputs on the card, with resets at the first, middle
+    and last step."""
+    is_first = torch.zeros(steps, batch, 1, device="cuda")
+    is_first[0, 0] = 1.0  # the other rows start from h0, so dh0 is not all zero
+    is_first[steps // 2, batch // 2] = 1.0
+    is_first[steps - 1, 0] = 1.0
+    return [
+        torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
+        torch.randn(steps, batch, xdim, device="cuda", generator=g),
+        torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5,
+        1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+        0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
+        is_first,
+        torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
+    ]
 
 
 def check_seq_gru_kernel(torch) -> dict:
-    """The sequence kernel against its plain loop, with resets mid-sequence:
-    at the decoupled DV3-S cell's shape (T = 64, B = 16, H = X = 512) and at
-    T = 5, B = 3, H = X = 128 (the smallest eligible width, an odd batch);
-    then, at the cell's shape, the autograd op's gradients (kernel forward,
-    efficient-BPTT backward) against autograd through the plain loop, and
-    the times.  Returns the cell's row."""
-    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
+    """The sequence op against its plain loop on both routes
+    (:data:`SEQ_SHAPES`, resets mid-sequence, the same bits twice), in f32
+    within :data:`SEQ_TOL` and in float64 within :data:`SEQ_F32_TOL`; the
+    cluster route's input product against the f32 product; then, at the
+    decoupled DV3-S cell's shape, the autograd op's gradients (kernel
+    forward, efficient-BPTT backward) against autograd through the plain
+    loop, and the times: event, device (and device operations) and host
+    time a call, the per-step slope of the device time between T = 16 and
+    T = 64, and forward + backward.  Returns the cell's row, with the input
+    product's under ``"input_product"``."""
+    from sheeprl_tpu_torch.ops import seq_gru as seq_ops
+    from sheeprl_tpu_torch.ops.seq_gru import gru_input_product, gru_sequence, gru_sequence_plain, sequence_route
 
     g = torch.Generator(device="cuda").manual_seed(6)
-
-    def inputs(steps, batch, hidden, xdim):
-        is_first = torch.zeros(steps, batch, 1, device="cuda")
-        is_first[0, 0] = 1.0  # the other rows start from h0, so dh0 is not all zero
-        is_first[steps // 2, batch // 2] = 1.0
-        is_first[steps - 1, 0] = 1.0
-        return [
-            torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
-            torch.randn(steps, batch, xdim, device="cuda", generator=g),
-            torch.randn(hidden + xdim, 3 * hidden, device="cuda", generator=g) * (hidden + xdim) ** -0.5,
-            1 + 0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
-            0.1 * torch.randn(3 * hidden, device="cuda", generator=g),
-            is_first,
-            torch.tanh(torch.randn(batch, hidden, device="cuda", generator=g)),
-        ]
-
-    errs = {}
-    for shape in ((64, 16, 512, 512), (5, 3, 128, 128)):
-        args = inputs(*shape)
+    optin = seq_ops._smem_optin(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, errs64, routes, dev = {}, {}, {}, {}
+    for shape in SEQ_SHAPES:
+        steps, batch, hidden, xdim = shape
+        args = seq_inputs(torch, g, *shape)
         out = gru_sequence(*args)
+        again = gru_sequence(*args)
         ref = gru_sequence_plain(*args)
         torch.cuda.synchronize()
+        name = "T={} B={} H={} X={}".format(*shape)
         if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"gru_sequence {shape}: shape {tuple(out.shape)} or non-finite output")
-        errs["T={} B={} H={} X={}".format(*shape)] = float((out - ref).abs().max())
+        if not torch.equal(out, again):
+            raise AssertionError(f"gru_sequence {shape}: two calls differ")
+        errs[name] = float((out - ref).abs().max())
+        errs64[name] = float((out.double() - gru_sequence_f64(torch, *args)).abs().max())
+        routes[name] = sequence_route(hidden, xdim, batch, optin, sms)
+        dev[name] = device_ms(torch, lambda: gru_sequence(*args), ops=True)
     if max(errs.values()) > SEQ_TOL:
         raise AssertionError(f"gru_sequence: max abs err {errs} > {SEQ_TOL}")
+    if max(errs64.values()) > SEQ_F32_TOL:
+        raise AssertionError(f"gru_sequence: max abs err against float64 {errs64} > {SEQ_F32_TOL}")
+    if sorted(set(routes.values())) != ["cluster", "grid"]:
+        raise AssertionError(f"gru_sequence: the shapes took the routes {routes}, want both")
 
-    steps, batch, hidden, xdim = 64, 16, 512, 512
-    args = inputs(steps, batch, hidden, xdim)
+    steps, batch, hidden, xdim = SEQ_SHAPES[0]
+    args = seq_inputs(torch, g, steps, batch, hidden, xdim)
+    # the input product alone, at the cell's shape
+    xs2, wx = args[1].reshape(steps * batch, xdim), args[2][hidden:]
+    zx = gru_input_product(xs2, wx)
+    zref = xs2 @ wx
+    torch.cuda.synchronize()
+    p_err = float((zx - zref).abs().max() / zref.abs().max())
+    if not p_err <= INPUT_PRODUCT_RTOL:
+        raise AssertionError(f"gru_input_product: relative error {p_err} > {INPUT_PRODUCT_RTOL}")
+    p_ms, p_by, p_cuda = input_product_bound_ms(steps * batch, xdim, 3 * hidden)
+    p_dev, p_ops = device_ms(torch, lambda: gru_input_product(xs2, wx), ops=True)
+    product_row = {
+        "shape": f"M={steps * batch}, X={xdim}, N={3 * hidden}, f32 (3xTF32)",
+        "max_abs_err": float((zx - zref).abs().max()), "max_rel_err": p_err, "rtol": INPUT_PRODUCT_RTOL,
+        "ms": time_ms(torch, lambda: gru_input_product(xs2, wx)),
+        "plain_ms": time_ms(torch, lambda: xs2 @ wx), "library_ms": time_ms(torch, lambda: torch.matmul(xs2, wx)),
+        "device_ms": p_dev, "device_ops": p_ops, "host_us": host_us(torch, lambda: gru_input_product(xs2, wx)),
+        "bound_ms": p_ms, "bound_by": p_by, "bound_cuda_cores_ms": p_cuda,
+    }
+    phase("gru_input_product", **product_row)
+
     diff = (0, 1, 2, 3, 4, 6)  # every input but is_first
     leaves = [a.requires_grad_(i in diff) for i, a in enumerate(args)]
     wanted = [leaves[i] for i in diff]
@@ -741,20 +841,27 @@ def check_seq_gru_kernel(torch) -> dict:
     def fwd_bwd(fn):
         torch.autograd.grad(fn(*leaves), wanted, up)
 
-    b_ms, b_by = seq_gru_bound_ms(steps, batch, hidden, xdim)
+    b_ms, b_by, b_cuda = seq_gru_bound_ms(steps, batch, hidden, xdim)
+    cell = "T={} B={} H={} X={}".format(*SEQ_SHAPES[0])
+    slope = "T={} B={} H={} X={}".format(*SEQ_SHAPES[1])
     row = {
-        "shape": f"T={steps}, B={batch}, H={hidden}, X={xdim}, f32",
-        "max_abs_err": max(errs.values()), "max_abs_err_by_shape": errs, "tol": SEQ_TOL,
+        "shape": f"T={steps}, B={batch}, H={hidden}, X={xdim}, f32", "route": routes[cell],
+        "max_abs_err": max(errs.values()), "max_abs_err_by_shape": errs, "route_by_shape": routes, "tol": SEQ_TOL,
+        "max_abs_err_f64_by_shape": errs64, "f32_tol": SEQ_F32_TOL,
+        "device_ms_by_shape": {k: v[0] for k, v in dev.items()},
         "grad_max_rel_err": grad_errs, "grad_rtol": SEQ_GRAD_RTOL,
         "ms": time_ms(torch, lambda: gru_sequence(*plain_args)),
         "plain_ms": time_ms(torch, lambda: gru_sequence_plain(*plain_args), iters=5),
         "library_ms": time_ms(torch, products, iters=5),
-        "device_ms": device_ms(torch, lambda: gru_sequence(*plain_args)),
+        "device_ms": dev[cell][0], "device_ops": dev[cell][1],
+        "host_us": host_us(torch, lambda: gru_sequence(*plain_args), calls=200),
+        "per_step_us": (dev[cell][0] - dev[slope][0]) / (SEQ_SHAPES[0][0] - SEQ_SHAPES[1][0]) * 1e3,
         "fwd_bwd_ms": time_ms(torch, lambda: fwd_bwd(gru_sequence), iters=5, warmup=1),
         "plain_fwd_bwd_ms": time_ms(torch, lambda: fwd_bwd(gru_sequence_plain), iters=5, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_cuda_cores_ms": b_cuda,
+        "input_product": product_row,
     }
-    phase("gru_sequence", **row)
+    phase("gru_sequence", **{k: v for k, v in row.items() if k != "input_product"})
     return row
 
 
@@ -844,7 +951,11 @@ def gather_bound_ms(n_rows: int, row_bytes: int) -> float:
 
 def check_gather_kernel(torch, cache, seq_len: int, batch: int) -> dict:
     """The window gather against its plain version on the training ring,
-    bytes exact, with windows that wrap the ring, and its times."""
+    bytes exact, with windows that wrap the ring, then again after one ring
+    is replaced by a new tensor behind the same key (a new plan), and its
+    times: event, device (and device operations) and host time a call, the
+    plain version, per-key ``index_select`` and the launch floor of the
+    ctypes route."""
     from sheeprl_tpu_torch.data.device_buffer import sample_window_starts
     from sheeprl_tpu_torch.ops.gather import gather_windows, gather_windows_plain, window_cells
 
@@ -863,6 +974,15 @@ def check_gather_kernel(torch, cache, seq_len: int, batch: int) -> dict:
     for k in bufs:
         if out[k].dtype != bufs[k].dtype or out[k].shape != ref[k].shape or not torch.equal(out[k], ref[k]):
             raise AssertionError(f"gather_windows '{k}': not byte-identical to the plain version")
+    key = min(bufs, key=lambda k: bufs[k].numel())
+    swapped = dict(bufs, **{key: torch.randint_like(bufs[key], 0, 2) if bufs[key].dtype == torch.uint8
+                            else torch.randn_like(bufs[key].float()).to(bufs[key].dtype)})
+    out = gather_windows(swapped, starts, envs, seq_len=seq_len, batch_size=batch)
+    ref = gather_windows_plain(swapped, starts, envs, seq_len=seq_len, batch_size=batch)
+    torch.cuda.synchronize()
+    if any(not torch.equal(out[k], ref[k]) for k in ref):
+        raise AssertionError(f"gather_windows: not byte-identical after '{key}' was replaced by a new ring")
+    del swapped, out, ref
     cells = window_cells(starts, envs, seq_len=seq_len, batch_size=batch, cap=cap, n_envs=cache.n_envs)
     flat = {k: v.reshape(cap * cache.n_envs, -1) for k, v in bufs.items()}
     row_bytes = sum(v[0, 0].numel() * v.element_size() for v in bufs.values())
@@ -875,18 +995,23 @@ def check_gather_kernel(torch, cache, seq_len: int, batch: int) -> dict:
     def library():
         return [v.index_select(0, cells) for v in flat.values()]
 
+    dev_ms, dev_ops = device_ms(torch, kernel, ops=True)
     res = {
         "rows": int(cells.numel()),
         "row_bytes": row_bytes,
         "dtypes": {k: str(v.dtype).replace("torch.", "") for k, v in bufs.items()},
         "wrapping_windows": 4,
+        "ring_replaced": key,
         "max_abs_err": 0.0,
         "ms": time_ms(torch, kernel, iters=50),
         "plain_ms": time_ms(torch, plain, iters=50),
         "library_ms": time_ms(torch, library, iters=50),
-        "device_ms": device_ms(torch, kernel),
+        "device_ms": dev_ms,
+        "device_ops": dev_ops,
         "plain_device_ms": device_ms(torch, plain),
         "library_device_ms": device_ms(torch, library),
+        "host_us": host_us(torch, kernel),
+        "launch_floor_ms": launch_floor_ms(torch),
         "bound_ms": gather_bound_ms(int(cells.numel()), row_bytes),
         "bound_by": "bytes",
     }
@@ -941,7 +1066,8 @@ def run_training(
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_state, train_steps
     from sheeprl_tpu_torch.ops.gather import gather_windows
     from sheeprl_tpu_torch.ops.gru_cell import gru_cell, gru_cell_plain
-    from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
+    from sheeprl_tpu_torch.ops import seq_gru as seq_ops
+    from sheeprl_tpu_torch.ops.seq_gru import gru_input_product, gru_sequence, gru_sequence_plain
     from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
 
     class _Space:
@@ -957,7 +1083,7 @@ def run_training(
     seq_len, batch = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
     gather_row = check_gather_kernel(torch, cache, seq_len, batch) if device != "cpu" else None
     n_params = sum(p.numel() for p in agent.parameters())
-    counters = (gru_cell, gru_sequence, gather_windows)
+    counters = (gru_cell, gru_sequence, gru_input_product, gather_windows)
 
     def run(kernels: bool, n: int) -> dict:
         agent.load_state_dict(initial)
@@ -1006,10 +1132,16 @@ def run_training(
 
     # the decoupled RSSM with an eligible size runs the dynamic recurrence as
     # one gru_sequence; otherwise it takes one GRU step per row of the window
+    # (the cluster route first computes its input product in a launch of its own)
     seq_route = rssm.decoupled and rssm.seq_scan_eligible(int(cfg.algo.world_model.recurrent_model.dense_units))
+    cluster = seq_route and device != "cpu" and seq_ops.sequence_route(
+        rssm.recurrent_state_size, int(cfg.algo.world_model.recurrent_model.dense_units), batch,
+        seq_ops._smem_optin(0), torch.cuda.get_device_properties(0).multi_processor_count,
+    ) == "cluster"
     want = {
         "gru_cell": (int(cfg.algo.horizon) + (0 if seq_route else seq_len)) * steps,
         "gru_sequence": steps if seq_route else 0,
+        "gru_input_product": steps if cluster else 0,
         "gather_windows": steps,
     }
     if device != "cpu" and fast["launches"] != want:
@@ -1284,7 +1416,9 @@ def check_write_cases(torch, base, depth: int, n_leaves: int, kinds, owner) -> l
                 raise AssertionError(f"sum_tree_{kind} at {lanes} lanes on a non-invariant tree: differs from the plain version")
             if not bool((owner == -1).all()):
                 raise AssertionError(f"sum_tree_{kind} at {lanes} lanes: the owner scratch was left dirty")
-            dev_ms, dev_ops = device_ms(torch, lambda: kernel(a), iters=5, warmup=1, ops=True)
+            # a profiler window can drop a kernel's record (PERF.md 7: readings of
+            # 0.8 and 0.95 ops a call), so the fuller of two windows is kept
+            dev_ms, dev_ops = device_ms(torch, lambda: kernel(a), iters=5, warmup=1, ops=True, windows=2)
             if dev_ops != 1:
                 raise AssertionError(f"sum_tree_{kind} at {lanes} lanes: {dev_ops} device operations a call, want 1")
             row = {"kind": kind, "lanes": lanes, "depth": depth, "device_ms": dev_ms, "device_ops": dev_ops,
@@ -2146,9 +2280,9 @@ def _kernel_group(name: str) -> str:
         return "gru_sequence (hand-written)"
     if "gru_" in n:
         return "gru_cell (hand-written)"
-    if "gather_windows" in n:
+    if "gather_kernelilb1" in n:  # csrc/gather.cu: gather_kernel<true>
         return "gather_windows (hand-written)"
-    if "gather_transitions" in n:
+    if "gather_kernelilb0" in n:
         return "gather_transitions (hand-written)"
     if any(k in n for k in ("sample_kernel", "descend_kernel", "normalize_kernel", "claim_kernel", "write_leaves", "rebuild_level")):
         return "sum_tree (hand-written)"
@@ -2341,7 +2475,7 @@ smoke.check_sharded_tree_kernels(torch)
 # 250,000 rows x 4 envs (1,000,000 transitions), one draw's 16,384 rows
 from types import SimpleNamespace
 from sheeprl_tpu_torch.ops import gather
-smoke.phase("build", **smoke.build_kernels([gather.TRANSITIONS_LIBRARY]))
+smoke.phase("build", **smoke.build_kernels([getattr(gather, "TRANSITIONS_LIBRARY", gather.LIBRARY)]))
 g = torch.Generator(device="cuda").manual_seed(6)
 cap, n_envs = 250000, 4
 feats = {"terminated": (torch.uint8, 1), "truncated": (torch.uint8, 1), "actions": (torch.float32, smoke.WALKER_ACTIONS),
@@ -2402,6 +2536,91 @@ def tree_bench(parent: str) -> int:
     return 0
 
 
+# One turn of --seq-bench: the sequence's and the window gather's checks and
+# rows of the checkout at argv[1], by that checkout's own chip_smoke.py, then
+# the same measurements of both ops, taken the same way for every checkout.
+_SEQ_TURN = """
+import sys
+import torch
+root = sys.argv[1]
+sys.path.insert(0, root)
+import chip_smoke as smoke
+from sheeprl_tpu_torch.config import dotdict
+from sheeprl_tpu_torch.ops import gather, gru_cell, seq_gru
+smoke.phase("device", name=torch.cuda.get_device_name(0), nvidia_smi=smoke.nvidia_smi(), root=root)
+smoke.phase("build", **smoke.build_kernels([gru_cell.LIBRARY, seq_gru.LIBRARY, gather.LIBRARY]))
+torch.backends.cuda.matmul.allow_tf32 = False
+smoke.check_seq_gru_kernel(torch)
+g = torch.Generator(device="cuda").manual_seed(11)
+dev = {}
+for steps in (16, 64):
+    is_first = torch.zeros(steps, 16, 1, device="cuda")
+    is_first[steps // 2, 3] = 1.0
+    args = [torch.tanh(torch.randn(16, 512, device="cuda", generator=g)), torch.randn(steps, 16, 512, device="cuda", generator=g),
+            torch.randn(1024, 1536, device="cuda", generator=g) / 32, 1 + 0.1 * torch.randn(1536, device="cuda", generator=g),
+            0.1 * torch.randn(1536, device="cuda", generator=g), is_first, torch.tanh(torch.randn(16, 512, device="cuda", generator=g))]
+    call = lambda: seq_gru.gru_sequence(*args)
+    dev[steps] = smoke.device_ms(torch, call, ops=True)
+leaves = [a.clone().requires_grad_(i != 5) for i, a in enumerate(args)]
+up = torch.randn(64, 16, 512, device="cuda", generator=g)
+fwd_bwd = lambda: torch.autograd.grad(seq_gru.gru_sequence(*leaves), [a for i, a in enumerate(leaves) if i != 5], up)
+smoke.phase("seq_bench_gru_sequence", shape="T=64, B=16, H=X=512", ms=smoke.time_ms(torch, call), device_ms=dev[64][0],
+            device_ops=dev[64][1], host_us=smoke.host_us(torch, call, calls=200),
+            per_step_us=(dev[64][0] - dev[16][0]) / 48 * 1e3, fwd_bwd_ms=smoke.time_ms(torch, fwd_bwd, iters=5, warmup=1))
+rb, cache, fill = smoke.fill_replay(dotdict(smoke.XL_CRAFTER), "cuda", smoke.TRAIN_CAPACITY)
+smoke.check_gather_kernel(torch, cache, 64, 16)
+starts = torch.randint(0, smoke.TRAIN_CAPACITY - 64, (16,), generator=g, device="cuda", dtype=torch.int32)
+envs = torch.zeros(16, dtype=torch.int32, device="cuda")
+call = lambda: gather.gather_windows(cache.buffers, starts, envs, seq_len=64, batch_size=16)
+d_ms, d_ops = smoke.device_ms(torch, call, ops=True)
+smoke.phase("seq_bench_gather_windows", rows=1024, ms=smoke.time_ms(torch, call, iters=50), device_ms=d_ms, device_ops=d_ops,
+            host_us=smoke.host_us(torch, call))
+print(smoke.nvidia_smi(), flush=True)
+"""
+
+
+def seq_bench(parent: str) -> int:
+    """``--seq-bench DIR``: the sequence GRU's and the window gather's checks
+    and rows of the checkout under DIR (the parent, unpacked with ``git
+    archive``) and of this one in turns, parent, this, this, parent, each by
+    its own ``chip_smoke.py`` in a process of its own on the one card: the
+    sequence at the decoupled DV3-S shape (T = 64, B = 16, H = X = 512) and
+    the window gather of 64 x 16 windows from the seeded Crafter ring of the
+    XL training phase.  Each turn also measures both ops the same way for
+    every checkout (phases ``seq_bench_gru_sequence`` and
+    ``seq_bench_gather_windows``: event, device and host time a call, device
+    operations, the per-step slope, forward + backward).  Each turn's output
+    goes to ``chiprun_out/seq_bench_<turn>.log`` and its rows to
+    ``chiprun_out/seq_bench.json``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    turns = []
+    for k, (label, root) in enumerate((("parent", parent), ("change", here), ("change", here), ("parent", parent))):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", _SEQ_TURN, root], capture_output=True, text=True, timeout=900)
+        with open(os.path.join(out_dir, f"seq_bench_{k}_{label}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the sequence turn under {root} failed ({proc.returncode})")
+        rows = {}
+        for ln in proc.stdout.splitlines():
+            tag, _, body = ln.partition(" ")
+            name = tag[1:-1]
+            if name in ("gru_sequence", "gru_input_product", "gather_windows", "seq_bench_gru_sequence",
+                        "seq_bench_gather_windows"):
+                rows[name] = json.loads(body)
+        smi = proc.stdout.strip().splitlines()[-1]
+        turns.append({"turn": label, "root": root, "nvidia_smi": smi, "rows": rows})
+        phase("seq_bench", turn=label, root=root, nvidia_smi=smi,
+              rows={k: rows[k] for k in ("seq_bench_gru_sequence", "seq_bench_gather_windows") if k in rows})
+    with open(os.path.join(out_dir, "seq_bench.json"), "w") as f:
+        json.dump(turns, f, indent=1)
+    print(turns[0]["nvidia_smi"], flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2416,6 +2635,8 @@ def main() -> int:
         return gru_bench(torch)
     if "--tree-bench" in sys.argv:
         return tree_bench(sys.argv[sys.argv.index("--tree-bench") + 1])
+    if "--seq-bench" in sys.argv:
+        return seq_bench(sys.argv[sys.argv.index("--seq-bench") + 1])
     from sheeprl_tpu_torch.config import dotdict
     from sheeprl_tpu_torch.ops import gather as gather_ops
     from sheeprl_tpu_torch.ops import gru_cell as gru_ops
@@ -2432,8 +2653,7 @@ def main() -> int:
 
     # 2. build: every kernel of both paths, side by side
     phase("build", **build_kernels(
-        [gru_ops.LIBRARY, gather_ops.LIBRARY, gather_ops.TRANSITIONS_LIBRARY, per_ops.LIBRARY, seq_ops.LIBRARY,
-         launch_floor_library()]
+        [gru_ops.LIBRARY, gather_ops.LIBRARY, per_ops.LIBRARY, seq_ops.LIBRARY, launch_floor_library()]
     ))
     phase("gru_cell_sass", **gru_cell_sass(gru_ops.LIBRARY))
 
@@ -2560,29 +2780,15 @@ def main() -> int:
                 for r in gru_rows
             ],
         },
-        {
-            "name": "gather_windows",
-            "route": "cuda",
-            "source": "sheeprl_tpu_torch/csrc/gather_windows.cu",
-            "replaces": "sheeprl_tpu/ops/pallas_gather.py:84",
-            "launches": train["launches"]["gather_windows"] + per_train["launches"]["gather_windows"]
-            + dec["launches"]["gather_windows"] + sharded["state_check"]["uniform_window_gather_launches"],
-            "launches_by_path": {"training": train["launches"]["gather_windows"],
-                                 "training_per": per_train["launches"]["gather_windows"],
-                                 "training_decoupled": dec["launches"]["gather_windows"],
-                                 "sac_sharded": sharded["state_check"]["uniform_window_gather_launches"]},
-            "max_abs_err": gather_row["max_abs_err"],
-            "ms": gather_row["ms"],
-            "plain_ms": gather_row["plain_ms"],
-            "bound_ms": gather_row["bound_ms"],
-            "bound_by": gather_row["bound_by"],
-            "library_ms": gather_row["library_ms"],
-            "device_ms": gather_row["device_ms"],
-            "plain_device_ms": gather_row["plain_device_ms"],
-            "library_device_ms": gather_row["library_device_ms"],
-            "shape": f"{gather_row['rows']} rows x {gather_row['row_bytes']} B",
-        },
-        _kernel_entry("gather_transitions", "sheeprl_tpu_torch/csrc/gather_transitions.cu",
+        _kernel_entry("gather_windows", "sheeprl_tpu_torch/csrc/gather.cu", "sheeprl_tpu/ops/pallas_gather.py:84",
+                      {"training": train["launches"]["gather_windows"],
+                       "training_per": per_train["launches"]["gather_windows"],
+                       "training_decoupled": dec["launches"]["gather_windows"],
+                       "sac_sharded": sharded["state_check"]["uniform_window_gather_launches"]},
+                      gather_row, f"{gather_row['rows']} rows x {gather_row['row_bytes']} B",
+                      **{k: gather_row[k] for k in ("host_us", "launch_floor_ms", "device_ops", "plain_device_ms",
+                                                    "library_device_ms")}),
+        _kernel_entry("gather_transitions", "sheeprl_tpu_torch/csrc/gather.cu",
                       "sheeprl_tpu/ops/pallas_gather.py:127",
                       {"sac": sac["launches"]["gather_transitions"],
                        "sac_sharded": sharded["state_check"]["uniform_gather_launches"]},
@@ -2610,7 +2816,15 @@ def main() -> int:
                       cases=_cases(tree_rows["write_cases"], "update")),
         _kernel_entry("gru_sequence", "sheeprl_tpu_torch/csrc/seq_gru.cu", "sheeprl_tpu/ops/seq_gru.py:126",
                       {"training_decoupled": dec["launches"]["gru_sequence"]}, seq_row, seq_row["shape"],
-                      fwd_bwd_ms=seq_row["fwd_bwd_ms"], plain_fwd_bwd_ms=seq_row["plain_fwd_bwd_ms"]),
+                      **{k: seq_row[k] for k in ("route", "route_by_shape", "max_abs_err_f64_by_shape", "f32_tol",
+                                                 "device_ops", "host_us", "per_step_us",
+                                                 "fwd_bwd_ms", "plain_fwd_bwd_ms", "bound_cuda_cores_ms",
+                                                 "device_ms_by_shape")}),
+        _kernel_entry("gru_input_product", "sheeprl_tpu_torch/csrc/gru_cell.cu", "sheeprl_tpu/ops/seq_gru.py:126",
+                      {"training_decoupled": dec["launches"]["gru_input_product"]}, seq_row["input_product"],
+                      seq_row["input_product"]["shape"],
+                      **{k: seq_row["input_product"][k] for k in ("device_ops", "host_us", "bound_cuda_cores_ms",
+                                                                  "max_rel_err", "rtol")}),
         _kernel_entry("sum_tree_descend", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:224",
                       {"sac_sharded": sharded["launches"]["sum_tree_descend"]}, shard_rows["descend_e4"],
                       f"{SHARDED_DRAWS} draws, one shard's {SHARD_LEAVES}-leaf sub-tree, 4 exclusions",
@@ -2631,6 +2845,9 @@ def main() -> int:
                       device_ops_1024=shard_rows["scatter_1024"]["device_ops"],
                       cases=_cases(shard_rows["write_cases"], "scatter")),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels launched no time on the main path: {idle}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -577,9 +577,13 @@ class RSSM(nn.Module):
         JAX's rule and numbers (``seq_gru.py:fits_vmem``), so that both
         packages take the same route at every size: ``fused_seq``, H and X
         multiples of 128, and the (H + X, 3H) weight within 10 MB in the
-        compute dtype.  On Hopper the 10 MB is what the kernel's cooperative
-        grid keeps in shared memory, one column slice per block: about 79 KB
-        on each of 132 SMs."""
+        compute dtype.  On Hopper the op then takes one of two kernels
+        (``ops/seq_gru.py:sequence_route``): where W[:H] and the state fit
+        16 blocks (H <= 512 at B <= 16; 192 KB of W and 32 KB of state a
+        block at DV3-S), the cluster route keeps W[:H] in shared memory and
+        multiplies xs by W[H:] for all steps before the recurrence; else the
+        cooperative grid keeps one column slice of the whole W a block, up
+        to about 79 KB on each of 132 SMs at the 10 MB limit."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         hidden = self.recurrent_state_size
         return (

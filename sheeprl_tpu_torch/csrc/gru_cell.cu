@@ -277,17 +277,17 @@ struct Copies {
 
 // Launch A.  Grid (ceil(B/BM), ceil(N/kBN), S); block z owns K tiles
 // [z*ts, min(T, (z+1)*ts)) of the T = ceil(H/BK) + ceil(X/BK) tiles;
-// partials is (S, B, N).
+// partials is (S, B, N).  The step passes N = 3H; the sequence's input
+// product (sheeprl_gru_input_product) passes H = 0, so K is x's alone.
 template <typename TW, typename TX, int BM>
 __global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) gru_mma(
     const float* __restrict__ h, const TX* __restrict__ x, const TW* __restrict__ w,
-    float* __restrict__ partials, int B, int H, int X, int ts) {
+    float* __restrict__ partials, int B, int H, int X, int N, int ts) {
   using T = Tile<TW, BM>;
   constexpr int kBK = T::kBK, kStages = T::kStages;
   constexpr int kLdH = lda<TW, float, kBK>(), kLdX = lda<TW, TX, kBK>();
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int N = 3 * H;
   const int b0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * kBN;
   const int th = (H + kBK - 1) / kBK;
@@ -512,25 +512,25 @@ __global__ void __launch_bounds__(kLnThreads) gru_ln_gates(
 }
 
 template <typename TW, typename TX, int BM>
-cudaError_t launch_mma(const void* h, const void* x, const void* w, float* partials, int B, int H, int X, int ts,
-                       int S, cudaStream_t stream) {
+cudaError_t launch_mma(const void* h, const void* x, const void* w, float* partials, int B, int H, int X, int N,
+                       int ts, int S, cudaStream_t stream) {
   const int smem = Tile<TW, BM>::kSmem;
   auto kernel = gru_mma<TW, TX, BM>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + BM - 1) / BM, (3 * H + kBN - 1) / kBN, S);
+  const dim3 grid((B + BM - 1) / BM, (N + kBN - 1) / kBN, S);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(h), static_cast<const TX*>(x),
-                                           static_cast<const TW*>(w), partials, B, H, X, ts);
+                                           static_cast<const TW*>(w), partials, B, H, X, N, ts);
   return cudaGetLastError();
 }
 
 template <typename TW, typename TX>
-cudaError_t dispatch_rows(const void* h, const void* x, const void* w, float* partials, int B, int H, int X, int bm,
-                          int ts, int S, cudaStream_t stream) {
+cudaError_t dispatch_rows(const void* h, const void* x, const void* w, float* partials, int B, int H, int X, int N,
+                          int bm, int ts, int S, cudaStream_t stream) {
   switch (bm) {
-    case 16: return launch_mma<TW, TX, 16>(h, x, w, partials, B, H, X, ts, S, stream);
-    case 64: return launch_mma<TW, TX, 64>(h, x, w, partials, B, H, X, ts, S, stream);
-    case 128: return launch_mma<TW, TX, 128>(h, x, w, partials, B, H, X, ts, S, stream);
+    case 16: return launch_mma<TW, TX, 16>(h, x, w, partials, B, H, X, N, ts, S, stream);
+    case 64: return launch_mma<TW, TX, 64>(h, x, w, partials, B, H, X, N, ts, S, stream);
+    case 128: return launch_mma<TW, TX, 128>(h, x, w, partials, B, H, X, N, ts, S, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -552,17 +552,32 @@ int sheeprl_gru_cell_forward(const void* h, const void* x, const void* w, const 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* part = static_cast<float*>(partials);
   cudaError_t err;
+  const int N = 3 * H;
   if (w_bf16)
-    err = x_bf16 ? dispatch_rows<bf16, bf16>(h, x, w, part, B, H, X, bm, ts, S, stream)
-                 : dispatch_rows<bf16, float>(h, x, w, part, B, H, X, bm, ts, S, stream);
+    err = x_bf16 ? dispatch_rows<bf16, bf16>(h, x, w, part, B, H, X, N, bm, ts, S, stream)
+                 : dispatch_rows<bf16, float>(h, x, w, part, B, H, X, N, bm, ts, S, stream);
   else
-    err = x_bf16 ? dispatch_rows<float, bf16>(h, x, w, part, B, H, X, bm, ts, S, stream)
-                 : dispatch_rows<float, float>(h, x, w, part, B, H, X, bm, ts, S, stream);
+    err = x_bf16 ? dispatch_rows<float, bf16>(h, x, w, part, B, H, X, N, bm, ts, S, stream)
+                 : dispatch_rows<float, float>(h, x, w, part, B, H, X, N, bm, ts, S, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   gru_ln_gates<<<B, kLnThreads, 0, stream>>>(part, static_cast<const float*>(h), static_cast<const float*>(gamma),
                                              static_cast<const float*>(beta), static_cast<float*>(out), B, H, S,
                                              eps, two_pass, round_parts);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sequence's input product (ops/seq_gru.py, the cluster route):
+// out (M, N) = x (M, X) @ w (X, N), all f32 and row-major, by launch A
+// alone in 3xTF32 with K = X in one slice (partials is then out itself).
+// bm: the block's rows (16, 64 or 128; ops/gru_cell.py:tile_rows).  The
+// caller guarantees X % 4 == 0, N % 4 == 0 and 16-byte aligned x, w, out.
+int sheeprl_gru_input_product(const void* x, const void* w, void* out, int M, int X, int N, int bm,
+                              void* stream_ptr) {
+  if (M <= 0 || X <= 0 || N <= 0 || X % 4 || N % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int depth = bm == 128 ? Tile<float, 128>::kBK : Tile<float, 64>::kBK;
+  const int tiles = (X + depth - 1) / depth;
+  return static_cast<int>(dispatch_rows<float, float>(x, x, w, static_cast<float*>(out), M, 0, X, N, bm, tiles, 1,
+                                                      static_cast<cudaStream_t>(stream_ptr)));
 }
 
 }  // extern "C"

@@ -329,8 +329,7 @@ class DeviceReplayCache:
         device, because XLA's TPU gathers address it in int32, and under
         ``auto`` a ring over 1.5 GB, an envelope measured on one TPU setup.
         Neither applies here: the window and transition gathers compute
-        64-bit offsets (``csrc/gather_windows.cu``,
-        ``csrc/gather_transitions.cu``), and the card's 80 GB hold a 1M-row
+        64-bit offsets (``csrc/gather.cu``), and the card's 80 GB hold a 1M-row
         DV3 ring (12.3 GB).  So a large ring with ``device_cache=True`` stays
         on the card, where JAX would train from the host buffer."""
         if self._budget is not None and self.estimate_bytes(row) > self._budget:

@@ -1,7 +1,7 @@
 """The replay gathers: hand-written CUDA kernels and their plain versions.
 
-The window gather (sequence replay) and, below it, the flat-transition
-gather (SAC-family replay).
+The window gather (sequence replay) and the flat-transition gather
+(SAC-family replay), one kernel body in ``csrc/gather.cu``.
 
 Counterpart of ``sheeprl_tpu/ops/pallas_gather.py:gather_windows_fused``
 together with the ``swapaxes`` that ``DeviceReplayCache._window_gather_out``
@@ -10,13 +10,19 @@ applies to its result.  For rings ``bufs[k]`` (cap, n_envs, *feat) and
 
     out[k][s, t, b] = bufs[k][(starts[f] + t) % cap, envs[f]],  f = s * batch + b
 
-one (n_samples, L, batch, *feat) tensor per key, bytes exact.
+one (n_samples, L, batch, *feat) tensor per key, bytes exact.  And of
+``pallas_gather.py:gather_transitions_fused``: every key's rows
+``bufs[k][rows[f], envs[f]]``, plus successor rows for the next keys.
 
-:func:`gather_windows` is the wrapper: for rings on the CPU it computes
-:func:`gather_windows_plain` (per-key advanced indexing, as the JAX
-package's lax branch does, ``device_buffer.py:281-288``); for CUDA rings it
-launches the kernel in ``csrc/gather_windows.cu`` once for all keys (and
-counts one in ``gather_windows.launches``) or raises.
+For rings on the CPU the wrappers compute the plain versions (per-key
+advanced indexing, as the JAX package's lax branch does,
+``device_buffer.py:163-172`` and ``:281-288``).  For CUDA rings they launch
+the kernel once for all keys (one count in ``gather_windows.launches`` or
+``gather_transitions.launches``) or raise: :func:`gather_plan` checks a set
+of rings once and lays out the C entry's table, :func:`_plan_for` caches it
+on every ring's pointer, shape and dtype, and a call checks only its
+indices, allocates one block for all its outputs (each a contiguous,
+16-byte-aligned view of it) and makes one ``ctypes`` call.
 """
 
 from __future__ import annotations
@@ -32,34 +38,21 @@ from sheeprl_tpu_torch.ops.build import CudaLibrary, current_stream
 
 __all__ = [
     "LIBRARY",
-    "TRANSITIONS_LIBRARY",
-    "TransitionsPlan",
+    "GatherPlan",
+    "gather_plan",
     "gather_transitions",
     "gather_transitions_plain",
     "gather_windows",
     "gather_windows_plain",
-    "transitions_plan",
     "window_cells",
 ]
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    lib.sheeprl_gather_windows.argtypes = (
-        [ptrs, ptrs, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 5
-        + [ctypes.c_void_p]
-    )
-    lib.sheeprl_gather_windows.restype = ctypes.c_int
-    lib.sheeprl_gather_windows_max_keys.argtypes = []
-    lib.sheeprl_gather_windows_max_keys.restype = ctypes.c_int
-
-
-MAX_ENTRIES = 32  # csrc/gather_transitions.cu: kMaxEntries, the most outputs of one call
+MAX_ENTRIES = 32  # csrc/gather.cu: kMaxEntries, the most outputs of one call
 
 
 class _PlanC(ctypes.Structure):
-    """``csrc/gather_transitions.cu:GatherPlan``, field for field."""
+    """``csrc/gather.cu:GatherPlan``, field for field."""
 
     _fields_ = [
         ("src", ctypes.c_void_p * MAX_ENTRIES),
@@ -73,23 +66,20 @@ class _PlanC(ctypes.Structure):
     ]
 
 
-def _bind_transitions(lib: ctypes.CDLL) -> None:
-    lib.sheeprl_gather_transitions.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ]
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.sheeprl_gather_transitions.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     lib.sheeprl_gather_transitions.restype = ctypes.c_int
-    lib.sheeprl_gather_transitions_max_entries.argtypes = []
-    lib.sheeprl_gather_transitions_max_entries.restype = ctypes.c_int
-    lib.sheeprl_gather_transitions_plan_bytes.argtypes = []
-    lib.sheeprl_gather_transitions_plan_bytes.restype = ctypes.c_size_t
-    if (lib.sheeprl_gather_transitions_max_entries(), lib.sheeprl_gather_transitions_plan_bytes()) != (
-        MAX_ENTRIES, ctypes.sizeof(_PlanC)
-    ):
-        raise RuntimeError("gather_transitions: the library's plan layout differs from ops/gather.py:_PlanC")
+    lib.sheeprl_gather_windows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.sheeprl_gather_windows.restype = ctypes.c_int
+    lib.sheeprl_gather_max_entries.argtypes = []
+    lib.sheeprl_gather_max_entries.restype = ctypes.c_int
+    lib.sheeprl_gather_plan_bytes.argtypes = []
+    lib.sheeprl_gather_plan_bytes.restype = ctypes.c_size_t
+    if (lib.sheeprl_gather_max_entries(), lib.sheeprl_gather_plan_bytes()) != (MAX_ENTRIES, ctypes.sizeof(_PlanC)):
+        raise RuntimeError("gather: the library's plan layout differs from ops/gather.py:_PlanC")
 
 
-LIBRARY = CudaLibrary("gather_windows.cu", "libsheeprl_gather", _bind)
-TRANSITIONS_LIBRARY = CudaLibrary("gather_transitions.cu", "libsheeprl_gather_transitions", _bind_transitions)
+LIBRARY = CudaLibrary("gather.cu", "libsheeprl_gather", _bind)
 
 
 def window_cells(starts: torch.Tensor, envs: torch.Tensor, *, seq_len: int, batch_size: int, cap: int, n_envs: int):
@@ -119,72 +109,6 @@ def gather_windows_plain(
     return out
 
 
-def _check(bufs: Dict[str, torch.Tensor], starts, envs, seq_len: int, batch_size: int) -> None:
-    name = "gather_windows"
-    if not bufs:
-        raise ValueError(f"{name}: no buffers")
-    first = next(iter(bufs.values()))
-    cap, n_envs = first.shape[:2]
-    for k, buf in bufs.items():
-        if buf.device != starts.device or envs.device != starts.device:
-            raise ValueError(f"{name}: '{k}', starts and envs must be on one device")
-        if buf.dim() < 2 or tuple(buf.shape[:2]) != (cap, n_envs):
-            raise ValueError(f"{name}: '{k}' is {tuple(buf.shape)}, the rings are ({cap}, {n_envs}, ...)")
-        if not buf.is_contiguous():
-            raise ValueError(f"{name}: '{k}' must be contiguous")
-    for arg, t in (("starts", starts), ("envs", envs)):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise TypeError(f"{name}: {arg} must be a contiguous 1-d int32 tensor")
-    if starts.shape != envs.shape or starts.shape[0] % batch_size:
-        raise ValueError(f"{name}: {starts.shape[0]} starts for batches of {batch_size}")
-    if not 0 < seq_len <= cap:
-        raise ValueError(f"{name}: seq_len {seq_len} outside (0, {cap}]")
-
-
-def gather_windows(
-    bufs: Dict[str, torch.Tensor], starts: torch.Tensor, envs: torch.Tensor, *, seq_len: int, batch_size: int
-) -> Dict[str, torch.Tensor]:
-    """Every key's (n_samples, L, batch, *feat) windows.
-
-    CPU rings take :func:`gather_windows_plain`; CUDA rings launch the
-    kernel once for all keys (one count in ``gather_windows.launches``) or
-    raise.  ``starts`` must already lie in [0, cap) and ``envs`` in
-    [0, n_envs)."""
-    if starts.device.type == "cpu":
-        return gather_windows_plain(bufs, starts, envs, seq_len=seq_len, batch_size=batch_size)
-    if starts.device.type != "cuda":
-        raise ValueError(f"gather_windows: no kernel for device {starts.device}")
-    _check(bufs, starts, envs, seq_len, batch_size)
-    lib = LIBRARY.load()
-    keys = list(bufs)
-    max_keys = lib.sheeprl_gather_windows_max_keys()
-    if len(keys) > max_keys:
-        raise ValueError(f"gather_windows: {len(keys)} keys, the kernel takes at most {max_keys}")
-    cap, n_envs = next(iter(bufs.values())).shape[:2]
-    n_samples = starts.shape[0] // batch_size
-    out = {
-        k: torch.empty((n_samples, seq_len, batch_size, *bufs[k].shape[2:]), dtype=bufs[k].dtype, device=starts.device)
-        for k in keys
-    }
-    n = len(keys)
-    srcs = (ctypes.c_void_p * n)(*[bufs[k].data_ptr() for k in keys])
-    dsts = (ctypes.c_void_p * n)(*[out[k].data_ptr() for k in keys])
-    row_bytes = (ctypes.c_longlong * n)(*[bufs[k][0, 0].numel() * bufs[k].element_size() for k in keys])
-    stream = torch.cuda.current_stream(starts.device).cuda_stream
-    err = lib.sheeprl_gather_windows(
-        srcs, dsts, row_bytes, n, starts.data_ptr(), envs.data_ptr(),
-        n_samples, int(seq_len), int(batch_size), int(cap), int(n_envs), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"gather_windows kernel launch failed: cudaError {err}")
-    gather_windows.launches += 1
-    return out
-
-
-gather_windows.launches = 0
-
-
-# ---------------------------------------------------------------- transitions
 def gather_transitions_plain(
     bufs: Dict[str, torch.Tensor], rows: torch.Tensor, envs: torch.Tensor, *, next_keys: Sequence[str] = ()
 ) -> Dict[str, torch.Tensor]:
@@ -201,38 +125,42 @@ def gather_transitions_plain(
     return out
 
 
+# ------------------------------------------------------- plans and the kernel
 class _Layout:
     """The outputs of one call as views of one uint8 block: entry ``e`` at a
     byte offset that is the sum of the entries before it, each rounded up to
-    16 bytes (``csrc/gather_transitions.cu`` places them the same way).
-    ``dtypes`` are the typed views of the block the entries need (uint8
-    first); ``views`` each entry's (typed view, shape, stride, offset)."""
+    16 bytes (``csrc/gather.cu`` places them the same way), each of shape
+    ``(*lead, *feat)``.  ``dtypes`` are the typed views of the block the
+    entries need (uint8 first); ``views`` each entry's (typed view, shape,
+    stride, offset)."""
 
     __slots__ = ("nbytes", "dtypes", "views")
 
-    def __init__(self, specs, flat: int):
+    def __init__(self, specs, lead: tuple):
         self.dtypes = [torch.uint8]
         self.views = []
+        rows = math.prod(lead)
         off = 0
         for feat, dtype in specs:
             if dtype not in self.dtypes:
                 self.dtypes.append(dtype)
-            shape = (flat, *feat)
+            shape = (*lead, *feat)
             strides, step = [], 1
             for d in reversed(shape):  # contiguous, as torch strides it
                 strides.insert(0, step)
                 step *= max(d, 1)
             self.views.append((self.dtypes.index(dtype), shape, tuple(strides), off // dtype.itemsize))
-            off = (off + flat * math.prod(feat) * dtype.itemsize + 15) // 16 * 16
+            off = (off + rows * math.prod(feat) * dtype.itemsize + 15) // 16 * 16
         self.nbytes = off
 
 
-class TransitionsPlan:
-    """What a call of the transition gather needs of its rings, worked out
-    once for a set of rings (:func:`transitions_plan`): the output entries,
-    each output's feature shape and dtype, and the kernel's plan (``c``: each
-    entry's ring pointer, row bytes, successor flag and chunk width, and the
-    prefix of the entries' chunk counts).  It holds no reference to a ring."""
+class GatherPlan:
+    """What a call of either gather needs of its rings, worked out once for a
+    set of rings (:func:`gather_plan`): the output entries, each output's
+    feature shape and dtype, and the kernel's plan (``c``: each entry's ring
+    pointer, row bytes, successor flag and chunk width, the prefix of the
+    entries' chunk counts, ``cap`` and ``n_envs``).  It holds no reference to
+    a ring."""
 
     __slots__ = ("names", "specs", "device", "device_index", "c", "c_address", "chunks_per_row", "layouts")
 
@@ -244,15 +172,23 @@ class TransitionsPlan:
         self.c = c
         self.c_address = ctypes.addressof(c)  # what the C entry takes; ``c`` keeps it alive
         self.chunks_per_row = chunks_per_row
-        self.layouts = {}  # flat -> _Layout
+        self.layouts = {}  # lead dims -> _Layout
 
-    def layout(self, flat: int) -> _Layout:
-        layout = self.layouts.get(flat)
+    def layout(self, *lead: int) -> _Layout:
+        """The outputs' layout for leading dims ``lead``: (flat,) for the
+        transitions, (n_samples, L, batch) for the windows."""
+        layout = self.layouts.get(lead)
         if layout is None:
             if len(self.layouts) >= 4:
                 self.layouts.clear()
-            layout = self.layouts[flat] = _Layout(self.specs, flat)
+            layout = self.layouts[lead] = _Layout(self.specs, lead)
         return layout
+
+    def outputs(self, layout: _Layout, like: torch.Tensor) -> tuple:
+        """One block on ``like``'s device and the outputs as views of it."""
+        block = like.new_empty((layout.nbytes,), dtype=torch.uint8)
+        typed = [block] + [block.view(dtype) for dtype in layout.dtypes[1:]]
+        return block, [typed[b].as_strided(shape, stride, off) for b, shape, stride, off in layout.views]
 
 
 def _chunk_shift(row_bytes: int, base: int) -> int:
@@ -265,11 +201,12 @@ def _chunk_shift(row_bytes: int, base: int) -> int:
     return 0
 
 
-def transitions_plan(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str] = ()) -> TransitionsPlan:
+def gather_plan(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str] = ()) -> GatherPlan:
     """Check the rings and build their plan (no device work): stored keys
     first, then ``next_<k>`` for ``next_keys`` (a stored key named like a
-    successor output is replaced by it, as in the plain version)."""
-    name = "gather_transitions"
+    successor output is replaced by it, as in the plain version).  The
+    window gather's plan is the one with no next keys."""
+    name = "gather"
     if not bufs:
         raise ValueError(f"{name}: no buffers")
     first = next(iter(bufs.values()))
@@ -299,14 +236,14 @@ def transitions_plan(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str] = (
         chunks += row_bytes >> shift
     c.first[len(entries)] = chunks
     specs = tuple((tuple(bufs[k].shape[2:]), bufs[k].dtype) for _, k, _ in entries)
-    return TransitionsPlan(tuple(out for out, _, _ in entries), specs, first.device, c, chunks)
+    return GatherPlan(tuple(out for out, _, _ in entries), specs, first.device, c, chunks)
 
 
-_PLANS: "OrderedDict[tuple, TransitionsPlan]" = OrderedDict()
-_PLANS_KEPT = 8  # a cache's rings make one plan; a few caches (or tests) share the process
+_PLANS: "OrderedDict[tuple, GatherPlan]" = OrderedDict()
+_PLANS_KEPT = 8  # a cache's rings make one plan a gather; a few caches (or tests) share the process
 
 
-def _plan_for(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str]) -> TransitionsPlan:
+def _plan_for(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str]) -> GatherPlan:
     """The plan of these rings, from the cache when every ring's pointer,
     shape and dtype (and the next keys) are those it was built for: a ring
     replaced by another tensor gets a new plan, so no stale pointer is
@@ -314,21 +251,68 @@ def _plan_for(bufs: Dict[str, torch.Tensor], next_keys: Sequence[str]) -> Transi
     key = (tuple(next_keys), *[(k, v.data_ptr(), v.shape, v.dtype) for k, v in bufs.items()])
     plan = _PLANS.get(key)
     if plan is None:
-        plan = transitions_plan(bufs, next_keys)
+        plan = gather_plan(bufs, next_keys)
         _PLANS[key] = plan
         if len(_PLANS) > _PLANS_KEPT:
             _PLANS.popitem(last=False)
     return plan
 
 
-def _check_indices(plan: TransitionsPlan, rows: torch.Tensor, envs: torch.Tensor) -> None:
-    for arg, t in (("rows", rows), ("envs", envs)):
+def _check_indices(name: str, plan: GatherPlan, rows: torch.Tensor, envs: torch.Tensor) -> None:
+    for arg, t in (("indices", rows), ("envs", envs)):
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise TypeError(f"gather_transitions: {arg} must be a contiguous 1-d int32 tensor")
+            raise TypeError(f"{name}: {arg} must be a contiguous 1-d int32 tensor")
         if t.device != plan.device:
-            raise ValueError(f"gather_transitions: {arg} is on {t.device}, the rings on {plan.device}")
+            raise ValueError(f"{name}: {arg} is on {t.device}, the rings on {plan.device}")
     if rows.shape != envs.shape:
-        raise ValueError(f"gather_transitions: {rows.shape[0]} rows, {envs.shape[0]} envs")
+        raise ValueError(f"{name}: {rows.shape[0]} indices, {envs.shape[0]} envs")
+
+
+def _indices_ok(plan: GatherPlan, idx: torch.Tensor, envs: torch.Tensor) -> bool:
+    """The indices' dtype, layout, length and device, as the kernel takes them."""
+    return (
+        idx.dtype is torch.int32 and envs.dtype is torch.int32 and idx.dim() == 1 and idx.is_contiguous()
+        and envs.is_contiguous() and idx.shape == envs.shape
+        and idx.get_device() == plan.device_index == envs.get_device()
+    )
+
+
+def gather_windows(
+    bufs: Dict[str, torch.Tensor], starts: torch.Tensor, envs: torch.Tensor, *, seq_len: int, batch_size: int
+) -> Dict[str, torch.Tensor]:
+    """Every key's (n_samples, L, batch, *feat) windows.
+
+    CPU rings take :func:`gather_windows_plain`; CUDA rings launch the
+    kernel in ``csrc/gather.cu`` once for all keys (one count in
+    ``gather_windows.launches``) or raise.  The rings' checks and the
+    kernel's table are made once per set of rings (:func:`_plan_for`).
+    ``starts`` must already lie in [0, cap) and ``envs`` in [0, n_envs)."""
+    if not starts.is_cuda:
+        if starts.device.type == "cpu":
+            return gather_windows_plain(bufs, starts, envs, seq_len=seq_len, batch_size=batch_size)
+        raise ValueError(f"gather_windows: no kernel for device {starts.device}")
+    plan = _plan_for(bufs, ())
+    if not _indices_ok(plan, starts, envs):
+        _check_indices("gather_windows", plan, starts, envs)
+    flat = starts.shape[0]
+    if batch_size < 1 or flat % batch_size:
+        raise ValueError(f"gather_windows: {flat} starts for batches of {batch_size}")
+    if not 0 < seq_len <= plan.c.cap:
+        raise ValueError(f"gather_windows: seq_len {seq_len} outside (0, {plan.c.cap}]")
+    n_samples = flat // batch_size
+    block, outs = plan.outputs(plan.layout(n_samples, seq_len, batch_size), starts)
+    if n_samples and plan.chunks_per_row:
+        err = LIBRARY.load().sheeprl_gather_windows(
+            plan.c_address, block.data_ptr(), starts.data_ptr(), envs.data_ptr(), n_samples, seq_len, batch_size,
+            current_stream(plan.device_index),
+        )
+        if err != 0:
+            raise RuntimeError(f"gather_windows kernel launch failed: cudaError {err}")
+        gather_windows.launches += 1
+    return dict(zip(plan.names, outs))
+
+
+gather_windows.launches = 0
 
 
 def gather_transitions(
@@ -339,31 +323,21 @@ def gather_transitions(
     ``next_keys``.
 
     CPU rings take :func:`gather_transitions_plain`; CUDA rings launch the
-    kernel in ``csrc/gather_transitions.cu`` once for every key (one count
-    in ``gather_transitions.launches``) or raise.  The rings' checks and the
-    kernel's table are made once per set of rings (:func:`_plan_for`); a
-    call checks the indices, allocates one block for all outputs (each a
-    contiguous view of it, 16-byte aligned) and makes one ``ctypes`` call.
+    kernel in ``csrc/gather.cu`` once for every key (one count in
+    ``gather_transitions.launches``) or raise.  The rings' checks and the
+    kernel's table are made once per set of rings (:func:`_plan_for`).
     ``rows`` must lie in [0, cap) and ``envs`` in [0, n_envs)."""
     if not rows.is_cuda:
         if rows.device.type == "cpu":
             return gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
         raise ValueError(f"gather_transitions: no kernel for device {rows.device}")
     plan = _plan_for(bufs, next_keys)
-    if not (
-        rows.dtype is torch.int32 and envs.dtype is torch.int32 and rows.dim() == 1 and rows.is_contiguous()
-        and envs.is_contiguous() and rows.shape == envs.shape
-        and rows.get_device() == plan.device_index == envs.get_device()
-    ):
-        _check_indices(plan, rows, envs)
+    if not _indices_ok(plan, rows, envs):
+        _check_indices("gather_transitions", plan, rows, envs)
     flat = rows.shape[0]
-    layout = plan.layout(flat)
-    block = rows.new_empty((layout.nbytes,), dtype=torch.uint8)
-    typed = [block] + [block.view(dtype) for dtype in layout.dtypes[1:]]
-    outs = [typed[b].as_strided(shape, stride, off) for b, shape, stride, off in layout.views]
+    block, outs = plan.outputs(plan.layout(flat), rows)
     if flat and plan.chunks_per_row:
-        lib = TRANSITIONS_LIBRARY.load()
-        err = lib.sheeprl_gather_transitions(
+        err = LIBRARY.load().sheeprl_gather_transitions(
             plan.c_address, block.data_ptr(), rows.data_ptr(), envs.data_ptr(), flat, current_stream(plan.device_index)
         )
         if err != 0:

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from sheeprl_tpu_torch.ops.build import CudaLibrary
+from sheeprl_tpu_torch.ops.build import CudaLibrary, current_stream
 
 __all__ = ["LIBRARY", "gru_cell", "gru_cell_plain", "split_k", "tile_depth", "tile_rows"]
 
@@ -48,6 +48,8 @@ def tile_depth(bm: int) -> int:
 def _bind(lib: ctypes.CDLL) -> None:
     lib.sheeprl_gru_cell_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     lib.sheeprl_gru_cell_forward.restype = ctypes.c_int
+    lib.sheeprl_gru_input_product.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.sheeprl_gru_input_product.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("gru_cell.cu", "libsheeprl_gru", _bind)
@@ -179,7 +181,7 @@ def _forward(h, x, w, gamma, beta, eps: float, two_pass: bool, round_parts: bool
         return out
     bm, ts, n_split = split_k(b, hidden, xdim, _sm_count(h.device))
     partials = torch.empty((n_split, b, 3 * hidden), dtype=torch.float32, device=h.device)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
+    stream = current_stream(h.get_device())
     err = lib.sheeprl_gru_cell_forward(
         h.data_ptr(), x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         out.data_ptr(), partials.data_ptr(),

@@ -16,9 +16,19 @@ and the flax cell's one-pass LayerNorm, ``var = max(E[p^2] - E[p]^2, 0)``,
 eps 1e-6 (``seq_gru.py:_ln``): one step is ``gru_cell_plain(hg, x, ...,
 two_pass=False)``.
 
-:func:`gru_sequence` is the op.  Its forward is the kernel in
+:func:`gru_sequence` is the op.  Its forward is the kernels in
 ``csrc/seq_gru.cu`` for CUDA tensors (or it raises) and
-:func:`gru_sequence_plain` for CPU tensors.  When a gradient is needed it
+:func:`gru_sequence_plain` for CPU tensors.  On the card it takes one of two
+routes, chosen by shape in :func:`sequence_route`:
+
+- ``cluster``: the input half of every step's product, ``xs @ W[H:]``,
+  first, for all T*B rows in one launch of ``csrc/gru_cell.cu``'s product
+  (:func:`gru_input_product`), then the recurrence on one cluster of 16
+  blocks that keep W[:H] and the state in shared memory;
+- ``grid``: the whole sequence in one cooperative launch of one block per
+  SM, each holding its columns of the whole W.
+
+When a gradient is needed it
 runs as a ``torch.autograd.Function`` whose backward is the counterpart of
 ``seq_gru.py:_bwd``, the efficient BPTT: the pre-LN activations of every
 step are recomputed from the saved states in one (T*B, H+X) @ (H+X, 3H)
@@ -27,7 +37,7 @@ d init_rec are one contraction each.  JAX computes that backward in XLA,
 outside any Pallas kernel, so here its products go to ``torch.matmul``.
 ``is_first`` gets no gradient.
 
-The kernel takes f32 operands only; any other dtype on a CUDA tensor
+The kernels take f32 operands only; any other dtype on a CUDA tensor
 raises.  The plain version also takes a bf16 W (the operands rounded to it,
 the product in f32), as JAX's ``matmul_dtype`` does.
 """
@@ -37,13 +47,29 @@ from __future__ import annotations
 import ctypes
 import torch
 
-from sheeprl_tpu_torch.ops.build import CudaLibrary
+from sheeprl_tpu_torch.ops import gru_cell as _cell
+from sheeprl_tpu_torch.ops.build import CudaLibrary, current_stream
 from sheeprl_tpu_torch.ops.gru_cell import gru_cell_plain
 
-__all__ = ["LIBRARY", "MAX_UNITS", "gru_sequence", "gru_sequence_plain", "sequence_grid"]
+__all__ = [
+    "CLUSTER_BLOCKS",
+    "CLUSTER_MAX_BATCH",
+    "LIBRARY",
+    "MAX_UNITS",
+    "cluster_smem_bytes",
+    "grid_smem_bytes",
+    "gru_input_product",
+    "gru_sequence",
+    "gru_sequence_plain",
+    "sequence_grid",
+    "sequence_route",
+]
 
-# hidden units a block of the kernel owns at most (csrc/seq_gru.cu: kMaxUnits)
+# hidden units a block of the grid route owns at most (csrc/seq_gru.cu: kMaxUnits)
 MAX_UNITS = 8
+# the cluster route (csrc/seq_gru.cu: kCluster, and the two 16-row tiles it takes)
+CLUSTER_BLOCKS = 16
+CLUSTER_MAX_BATCH = 32
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -51,6 +77,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.sheeprl_gru_sequence_forward.restype = ctypes.c_int
+    lib.sheeprl_gru_sequence_cluster.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.sheeprl_gru_sequence_cluster.restype = ctypes.c_int
+    lib.sheeprl_gru_sequence_cluster_prepare.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sheeprl_gru_sequence_cluster_prepare.restype = ctypes.c_int
+    lib.sheeprl_gru_sequence_cluster_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sheeprl_gru_sequence_cluster_smem.restype = ctypes.c_longlong
+    lib.sheeprl_gru_sequence_smem_optin.argtypes = []
+    lib.sheeprl_gru_sequence_smem_optin.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("seq_gru.cu", "libsheeprl_seq_gru", _bind)
@@ -88,6 +124,87 @@ def sequence_grid(hidden: int, sm_count: int) -> tuple:
     return units, -(-hidden // units)
 
 
+def cluster_smem_bytes(hidden: int, batch: int) -> int:
+    """Shared memory a block of the cluster route needs (0 where the route
+    cannot take the shape: H not a multiple of 128, or B over 32).
+
+    Block r owns U = H/16 units: W[:H]'s 3U columns (H x 3U f32), the whole
+    state hg in 16-row tiles (16 ceil(B/16) x H, 4 bytes an element), every
+    block's row sum and sum of squares (16 x rows x 2), its groups of 8
+    units' (U/8 x rows x 2) and two 8-byte mbarriers (the state's and the
+    row sums')."""
+    if hidden <= 0 or hidden % 128 or not 0 < batch <= CLUSTER_MAX_BATCH:
+        return 0
+    rows = 16 * -(-batch // 16)
+    units = hidden // CLUSTER_BLOCKS
+    return 4 * (3 * hidden * hidden // 16 + rows * hidden + CLUSTER_BLOCKS * rows * 2 + units // 8 * rows * 2) + 16
+
+
+def grid_smem_bytes(hidden: int, xdim: int, batch: int, sm_count: int) -> int:
+    """Shared memory a block of the grid route needs at the least: its
+    columns of the whole W (3S x (H + X) f32), z and the statistics of every
+    row, every block's partial sums, and one staged row of [hg, x]."""
+    units, blocks = sequence_grid(hidden, sm_count)
+    k = hidden + xdim
+    return 4 * (3 * units * k + batch * 3 * units + 2 * batch + 2 * batch * blocks + k)
+
+
+def sequence_route(hidden: int, xdim: int, batch: int, smem_optin: int, sm_count: int) -> str:
+    """Which kernel runs a sequence of this shape on a card with
+    ``smem_optin`` bytes of shared memory a block and ``sm_count`` SMs:
+    ``"cluster"`` wherever the cluster route's W[:H] slice and state fit
+    (:func:`cluster_smem_bytes`), else ``"grid"`` where its blocks hold at
+    most :data:`MAX_UNITS` units and fit.  Raises ``ValueError`` for a
+    shape neither takes."""
+    need = cluster_smem_bytes(hidden, batch)
+    if 0 < need <= smem_optin:
+        return "cluster"
+    units, _ = sequence_grid(hidden, sm_count)
+    if units > MAX_UNITS:
+        raise ValueError(
+            f"gru_sequence: H={hidden} needs {units} units a block on {sm_count} SMs; "
+            f"the kernel holds at most {MAX_UNITS}"
+        )
+    if grid_smem_bytes(hidden, xdim, batch, sm_count) > smem_optin:
+        raise ValueError(f"gru_sequence: H={hidden}, X={xdim}, B={batch} does not fit {smem_optin} bytes a block")
+    return "grid"
+
+
+def gru_input_product(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(M, X) @ (X, N) -> (M, N) f32, the cluster route's input product:
+    ``x @ w`` in f32 for CPU tensors; for CUDA tensors one launch of
+    ``csrc/gru_cell.cu``'s 3xTF32 product (one count in
+    ``gru_input_product.launches``) into ``out`` (contiguous (M, N) f32, or
+    a new tensor) or a raise.  Contiguous f32 operands, 16-byte aligned, X
+    and N multiples of 4."""
+    if x.device.type == "cpu":
+        return x.float() @ w.float()
+    m, xdim = x.shape
+    n = w.shape[1]
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("gru_input_product: the kernel takes float32 operands")
+    if w.shape[0] != xdim or xdim % 4 or n % 4 or not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"gru_input_product: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit the kernel")
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    if (x.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError("gru_input_product: x and w must be 16-byte aligned")
+    index = x.get_device()
+    bm = _cell.tile_rows(m, n // 3, _cell._sm_count(x.device))
+    err = _cell.LIBRARY.load().sheeprl_gru_input_product(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, xdim, n, bm, current_stream(index)
+    )
+    if err != 0:
+        raise RuntimeError(f"gru_input_product kernel launch failed: cudaError {err}")
+    gru_input_product.launches += 1
+    return out
+
+
+gru_input_product.launches = 0
+
+
 def _check(h0, xs, w, gamma, beta, is_first, init_rec) -> None:
     dev = h0.device
     named = (("xs", xs), ("w", w), ("gamma", gamma), ("beta", beta), ("is_first", is_first), ("init_rec", init_rec))
@@ -118,9 +235,23 @@ def _check(h0, xs, w, gamma, beta, is_first, init_rec) -> None:
             raise ValueError(f"gru_sequence: {name} must be 16-byte aligned")
 
 
+_OPTIN: dict = {}
+# (device index, H, 16-row tiles) whose cluster launch is prepared
+_CLUSTER_READY: set = set()
+
+
+def _smem_optin(index: int) -> int:
+    """Shared memory a block may opt in to on device ``index``."""
+    if index not in _OPTIN:
+        with torch.cuda.device(index):
+            _OPTIN[index] = int(LIBRARY.load().sheeprl_gru_sequence_smem_optin())
+    return _OPTIN[index]
+
+
 def _forward(h0, xs, w, gamma, beta, is_first, init_rec, eps: float) -> torch.Tensor:
     """The sequence without autograd: the plain version for CPU tensors, the
-    kernel (one count in ``gru_sequence.launches``) for CUDA tensors."""
+    route's kernels (one count in ``gru_sequence.launches`` for the
+    recurrence) for CUDA tensors."""
     if h0.device.type == "cpu":
         return gru_sequence_plain(h0, xs, w, gamma, beta, is_first, init_rec, eps=eps)
     if h0.device.type != "cuda":
@@ -131,22 +262,39 @@ def _forward(h0, xs, w, gamma, beta, is_first, init_rec, eps: float) -> torch.Te
     hs = torch.empty((steps, b, hidden), dtype=torch.float32, device=h0.device)
     if steps == 0 or b == 0:
         return hs
-    sms = torch.cuda.get_device_properties(h0.device).multi_processor_count
-    units, blocks = sequence_grid(hidden, sms)
-    if units > MAX_UNITS:
-        raise ValueError(
-            f"gru_sequence: H={hidden} needs {units} units a block on {sms} SMs; the kernel holds at most {MAX_UNITS}"
-        )
+    index = h0.get_device()
+    sms = _cell._sm_count(h0.device)
+    route = sequence_route(hidden, xdim, b, _smem_optin(index), sms)
     lib = LIBRARY.load()
-    partials = torch.empty((blocks, b, 2), dtype=torch.float32, device=h0.device)
-    with torch.cuda.device(h0.device):
-        err = lib.sheeprl_gru_sequence_forward(
-            h0.data_ptr(), xs.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            is_first.data_ptr(), init_rec.data_ptr(), hs.data_ptr(), partials.data_ptr(),
-            steps, b, hidden, xdim, units, float(eps), torch.cuda.current_stream(h0.device).cuda_stream,
-        )
+    stream = current_stream(index)
+    with torch.cuda.device(index):
+        if route == "cluster":
+            tiles = -(-b // 16)
+            if (index, hidden, tiles) not in _CLUSTER_READY:
+                err = lib.sheeprl_gru_sequence_cluster_prepare(hidden, b)
+                if err != 0:
+                    raise RuntimeError(f"gru_sequence cluster route at H={hidden}, B={b} refused: cudaError {err}")
+                _CLUSTER_READY.add((index, hidden, tiles))
+            # one allocation: zx (T*B, 3H), then the exchange buffer (16 tiles rows x H)
+            n = steps * b * 3 * hidden
+            scratch = torch.empty(n + 16 * tiles * hidden, dtype=torch.float32, device=h0.device)
+            zx = gru_input_product(xs.view(steps * b, xdim), w[hidden:], out=scratch[:n].view(steps * b, 3 * hidden))
+            exchange = scratch[n:]
+            err = lib.sheeprl_gru_sequence_cluster(
+                h0.data_ptr(), zx.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                is_first.data_ptr(), init_rec.data_ptr(), hs.data_ptr(), exchange.data_ptr(),
+                steps, b, hidden, float(eps), stream,
+            )
+        else:
+            units, blocks = sequence_grid(hidden, sms)
+            partials = torch.empty((blocks, b, 2), dtype=torch.float32, device=h0.device)
+            err = lib.sheeprl_gru_sequence_forward(
+                h0.data_ptr(), xs.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                is_first.data_ptr(), init_rec.data_ptr(), hs.data_ptr(), partials.data_ptr(),
+                steps, b, hidden, xdim, units, float(eps), stream,
+            )
     if err != 0:
-        raise RuntimeError(f"gru_sequence kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"gru_sequence {route} kernel launch failed: cudaError {err}")
     gru_sequence.launches += 1
     return hs
 
@@ -248,7 +396,9 @@ def gru_sequence(
     hs (T, B, H) f32.
 
     CPU tensors take :func:`gru_sequence_plain`; CUDA tensors launch the
-    kernel once (and count one in ``gru_sequence.launches``) or raise.
+    recurrence kernel of :func:`sequence_route`'s route once (and count one
+    in ``gru_sequence.launches``), after the input product on the cluster
+    route, or raise.
     Under autograd the op is differentiable in every input but
     ``is_first``, with the backward described in the module docstring."""
     is_first = is_first.reshape(*xs.shape[:2], 1).float()

@@ -323,11 +323,12 @@ def _sequence_inputs(g, steps, batch, hidden, xdim):
     "steps,batch,hidden,xdim", [(64, 16, 512, 512), (5, 3, 128, 128), (9, 33, 256, 128), (3, 2, 200, 72), (4, 16, 128, 8192)]
 )
 def test_gru_sequence_matches_plain(steps, batch, hidden, xdim):
-    """The sequence kernel against its plain loop, resets mid-sequence: the
-    decoupled DV3-S cell's shape, the smallest eligible width at an odd
-    batch, a batch that leaves warps half used, H that does not split
-    evenly over the blocks, and rows too wide for shared memory to stage
-    all 16 at once; one launch each, and the same bits twice."""
+    """The sequence op against its plain loop, resets mid-sequence: the
+    decoupled DV3-S cell's shape and the smallest eligible width at an odd
+    batch (the cluster route), a batch past two 16-row tiles and H that
+    does not split evenly over the blocks (the grid route), and X = 8192
+    (the cluster route's input product over a long K); one recurrence
+    launch each, and the same bits twice."""
     from sheeprl_tpu_torch.ops.seq_gru import gru_sequence, gru_sequence_plain
 
     if not torch.cuda.is_available():
@@ -747,3 +748,151 @@ def test_gather_transitions_on_a_misaligned_ring(offset, flat):
     assert list(out) == list(ref)
     for k in ref:
         assert out[k].dtype == ref[k].dtype and out[k].shape == ref[k].shape and torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [128, 512])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("steps", [1, 5, 64])
+def test_gru_sequence_cluster_route_matches_plain(steps, batch, hidden):
+    """The cluster route (the input product, then the recurrence on one
+    cluster of 16 blocks) against the plain loop, with resets mid-sequence:
+    forward within 1e-4 (chip_smoke's SEQ_TOL), the same bits twice, one
+    input-product launch and one recurrence launch a call; at T = 5 also
+    the gradients (efficient BPTT from the kernel's states) within 1e-3 of
+    each gradient's largest magnitude (SEQ_GRAD_RTOL)."""
+    from sheeprl_tpu_torch.ops import seq_gru
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert seq_gru.sequence_route(hidden, hidden, batch, seq_gru._smem_optin(0), sms) == "cluster"
+    assert seq_gru.LIBRARY.load().sheeprl_gru_sequence_cluster_smem(hidden, batch) == seq_gru.cluster_smem_bytes(hidden, batch)
+    args = _sequence_inputs(torch.Generator(device="cuda").manual_seed(steps * batch + hidden), steps, batch, hidden, hidden)
+    before = (seq_gru.gru_sequence.launches, seq_gru.gru_input_product.launches)
+    out = seq_gru.gru_sequence(*args)
+    again = seq_gru.gru_sequence(*args)
+    ref = seq_gru.gru_sequence_plain(*args)
+    torch.cuda.synchronize()
+    assert (seq_gru.gru_sequence.launches, seq_gru.gru_input_product.launches) == (before[0] + 2, before[1] + 2)
+    assert out.shape == (steps, batch, hidden) and torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-4
+    if steps == 5:
+        diff = (0, 1, 2, 3, 4, 6)
+        leaves = [a.requires_grad_(i in diff) for i, a in enumerate(args)]
+        wanted = [leaves[i] for i in diff]
+        up = torch.randn(steps, batch, hidden, device="cuda")
+        got = torch.autograd.grad(seq_gru.gru_sequence(*leaves), wanted, up)
+        want = torch.autograd.grad(seq_gru.gru_sequence_plain(*leaves), wanted, up)
+        for a, b in zip(got, want):
+            assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,xdim,route", [(512, 512, "cluster"), (768, 256, "grid")])
+def test_gru_sequence_keeps_f32_accuracy(hidden, xdim, route):
+    """Both routes at T = 64, B = 16 against the plain loop in float64
+    within chip_smoke's SEQ_F32_TOL (2e-6), which an f32-accurate product
+    meets and a ~16-bit one does not (tests/test_torch_seq_gru_routes.py)."""
+    from chip_smoke import SEQ_F32_TOL, gru_sequence_f64
+    from sheeprl_tpu_torch.ops import seq_gru
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert seq_gru.sequence_route(hidden, xdim, 16, seq_gru._smem_optin(0), sms) == route
+    args = _sequence_inputs(torch.Generator(device="cuda").manual_seed(hidden), 64, 16, hidden, xdim)
+    out = seq_gru.gru_sequence(*args)
+    exact = gru_sequence_f64(torch, *args)
+    assert (out.double() - exact).abs().max().item() <= SEQ_F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,batch", [(5, 3), (64, 16)])
+def test_gru_sequence_grid_route_matches_plain(steps, batch):
+    """H = 768, X = 256 (eligible for the scan, W[:H] too large for 16
+    blocks) takes the cooperative grid: forward within 1e-4, gradients
+    within 1e-3, one launch a call and no input product."""
+    from sheeprl_tpu_torch.ops import seq_gru
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert seq_gru.sequence_route(768, 256, batch, seq_gru._smem_optin(0), sms) == "grid"
+    args = _sequence_inputs(torch.Generator(device="cuda").manual_seed(steps), steps, batch, 768, 256)
+    before = (seq_gru.gru_sequence.launches, seq_gru.gru_input_product.launches)
+    diff = (0, 1, 2, 3, 4, 6)
+    leaves = [a.requires_grad_(i in diff) for i, a in enumerate(args)]
+    wanted = [leaves[i] for i in diff]
+    out = seq_gru.gru_sequence(*leaves)
+    ref = seq_gru.gru_sequence_plain(*leaves)
+    torch.cuda.synchronize()
+    assert (seq_gru.gru_sequence.launches, seq_gru.gru_input_product.launches) == (before[0] + 1, before[1])
+    assert (out - ref).abs().max().item() <= 1e-4
+    up = torch.randn(steps, batch, 768, device="cuda")
+    got = torch.autograd.grad(out, wanted, up)
+    want = torch.autograd.grad(ref, wanted, up)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gru_input_product_matches_the_f32_product():
+    """The cluster route's input product alone at the DV3-S shape (1,024
+    rows x 512 @ 512 x 1,536) and at a ragged one: within 1e-5 of the f32
+    product's largest magnitude, one launch a call."""
+    from sheeprl_tpu_torch.ops.seq_gru import gru_input_product
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for m, xdim, n in ((1024, 512, 1536), (3, 132, 384)):
+        x = torch.randn(m, xdim, device="cuda", generator=g)
+        w = torch.randn(xdim, n, device="cuda", generator=g) * xdim**-0.5
+        before = gru_input_product.launches
+        out = gru_input_product(x, w)
+        ref = x @ w
+        torch.cuda.synchronize()
+        assert gru_input_product.launches == before + 1
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gather_windows_after_a_ring_is_replaced():
+    """The window gather's plan is cached on the rings' pointers: a ring
+    replaced by a new tensor behind the same key (the old one alive, then
+    freed) between calls gives a new plan, and each call's bytes are those
+    of the rings it was given; one launch and one device block a call."""
+    from sheeprl_tpu_torch.ops import gather
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cap, n_envs, seq_len, batch, n_samples = 61, 2, 9, 4, 3
+    bufs = {"rgb": torch.randint(0, 256, (cap, n_envs, 16, 16, 3), generator=g, device="cuda", dtype=torch.uint8),
+            "actions": torch.randn(cap, n_envs, 17, generator=g, device="cuda"),
+            "odd": torch.randint(0, 256, (cap, n_envs, 3), generator=g, device="cuda", dtype=torch.uint8)}
+    starts = torch.randint(0, cap, (n_samples * batch,), generator=g, device="cuda", dtype=torch.int32)
+    starts[:2] = torch.tensor([cap - 1, cap - 4], dtype=torch.int32, device="cuda")
+    envs = torch.randint(0, n_envs, (n_samples * batch,), generator=g, device="cuda", dtype=torch.int32)
+    plans = []
+    for step in range(4):
+        before = gather.gather_windows.launches
+        out = gather.gather_windows(bufs, starts, envs, seq_len=seq_len, batch_size=batch)
+        ref = gather.gather_windows_plain(bufs, starts, envs, seq_len=seq_len, batch_size=batch)
+        torch.cuda.synchronize()
+        assert gather.gather_windows.launches == before + 1
+        plans.append(gather._plan_for(bufs, ()))
+        for k in ref:
+            assert out[k].dtype == ref[k].dtype and torch.equal(out[k], ref[k]), (step, k)
+        if step == 0:
+            bufs["actions"] = torch.randn(cap, n_envs, 17, generator=g, device="cuda")
+        else:
+            del out, ref
+            bufs = dict(bufs, odd=None)
+            bufs["odd"] = torch.randint(0, 256, (cap, n_envs, 3), generator=g, device="cuda", dtype=torch.uint8) + step
+    assert plans[0] is not plans[1]
+    assert _device_ops(lambda: gather.gather_windows(bufs, starts, envs, seq_len=seq_len, batch_size=batch)) == 1

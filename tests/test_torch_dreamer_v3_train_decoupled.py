@@ -129,7 +129,8 @@ def test_chip_smoke_decoupled_phase_runs_on_cpu():
         dotdict(cfg), {"rgb": (16, 16, 3)}, (9,), "cpu", steps=2, capacity=256, transitions=small, per=False,
         profile=True,
     )
-    assert res["launches_expected"] == {"gru_cell": 2 * 3, "gru_sequence": 2, "gather_windows": 2}
+    # (the input product is the cluster route's, which only a card takes)
+    assert res["launches_expected"] == {"gru_cell": 2 * 3, "gru_sequence": 2, "gru_input_product": 0, "gather_windows": 2}
     assert len(res["losses_kernels"]) == 2 and res["categorical_samples"] == 2 * (8 * 4 * 4 + 3 * 32 * 4)
     # on the CPU the op's backward (efficient BPTT) meets autograd through the plain loop
     assert res["max_abs_param_diff"] <= chip_smoke.PARAM_ATOL

@@ -1,6 +1,6 @@
-"""The transition gather's plan (#4, ``ops/gather.py:transitions_plan`` and
+"""The transition gather's plan (#4 and #3, ``ops/gather.py:gather_plan`` and
 ``_plan_for``), on CPU tensors: what it is keyed on, its chunk table, and an
-emulation of ``csrc/gather_transitions.cu``'s work split that reads and
+emulation of ``csrc/gather.cu``'s work split that reads and
 writes bytes through the plan alone, against the plain version.
 
 The emulation follows the kernel: a block takes ``rows_per_block`` rows
@@ -21,7 +21,7 @@ from sheeprl_tpu_torch.ops import gather
 
 torch.set_num_threads(1)
 
-SOURCE = Path(gather.__file__).resolve().parent.parent / "csrc" / "gather_transitions.cu"
+SOURCE = Path(gather.__file__).resolve().parent.parent / "csrc" / "gather.cu"
 
 
 def _constant(name: str) -> int:
@@ -47,7 +47,7 @@ def _misaligned(cap, n_envs, row_bytes, offset, seed=1):
     return flat[offset:].view(cap, n_envs, row_bytes)
 
 
-def emulate(plan: gather.TransitionsPlan, bufs, rows, envs):
+def emulate(plan: gather.GatherPlan, bufs, rows, envs):
     """The kernel's work split over CPU rings, through the plan's table."""
     c = plan.c
     n = c.n
@@ -120,7 +120,7 @@ def test_chunk_table(next_keys):
     the row bytes allow, else 4-byte, else bytes; the prefix of the chunk
     counts; successor entries after the stored keys."""
     bufs = _rings()
-    plan = gather.transitions_plan(bufs, next_keys)
+    plan = gather.gather_plan(bufs, next_keys)
     c = plan.c
     names = ("obs", "act", "rew", "done", "flag") + tuple(f"next_{k}" for k in next_keys)
     assert plan.names == names and c.n == len(names) and (c.cap, c.n_envs) == (9, 3)
@@ -142,7 +142,7 @@ def test_chunk_width_follows_the_ring_base(offset, shift):
     takes the widest chunk that divides both the row bytes and the base."""
     ring = _misaligned(7, 2, 96, offset)
     assert (ring.data_ptr() - offset) % 16 == 0  # the allocation itself is aligned (64 bytes in torch)
-    plan = gather.transitions_plan({"x": ring})
+    plan = gather.gather_plan({"x": ring})
     assert plan.c.shift[0] == shift and plan.chunks_per_row == 96 >> shift
 
 
@@ -158,7 +158,7 @@ def test_emulated_kernel_matches_plain(flat, next_keys):
     rows = torch.randint(0, 13, (flat,), generator=g, dtype=torch.int32)
     rows[: min(flat, 3)] = 12
     envs = torch.randint(0, 4, (flat,), generator=g, dtype=torch.int32)
-    plan = gather.transitions_plan(bufs, next_keys)
+    plan = gather.gather_plan(bufs, next_keys)
     got = emulate(plan, bufs, rows, envs)
     ref = gather.gather_transitions_plain(bufs, rows, envs, next_keys=next_keys)
     assert list(got) == list(ref)
@@ -169,16 +169,16 @@ def test_emulated_kernel_matches_plain(flat, next_keys):
 def test_plan_refuses_what_the_kernel_does_not_take():
     bufs = _rings()
     with pytest.raises(ValueError, match="contiguous"):
-        gather.transitions_plan(dict(bufs, obs=bufs["obs"][:, :, ::2]))
+        gather.gather_plan(dict(bufs, obs=bufs["obs"][:, :, ::2]))
     with pytest.raises(ValueError, match="rings are"):
-        gather.transitions_plan(dict(bufs, obs=torch.zeros(8, 3, 24)))
+        gather.gather_plan(dict(bufs, obs=torch.zeros(8, 3, 24)))
     with pytest.raises(KeyError):
-        gather.transitions_plan(bufs, ("missing",))
+        gather.gather_plan(bufs, ("missing",))
     many = {f"k{i}": torch.zeros(4, 2) for i in range(gather.MAX_ENTRIES + 1)}
     with pytest.raises(ValueError, match="at most"):
-        gather.transitions_plan(many)
+        gather.gather_plan(many)
     with pytest.raises(ValueError, match="no buffers"):
-        gather.transitions_plan({})
+        gather.gather_plan({})
 
 
 @pytest.mark.parametrize("flat", [0, 1, 7, 16384])
@@ -187,7 +187,7 @@ def test_layout_views_are_contiguous_aligned_and_disjoint(flat):
     contiguous, starts on 16 bytes, and no two overlap."""
     bufs = _rings()
     bufs["wide"] = torch.zeros(9, 3, 2, 5, dtype=torch.int64)
-    plan = gather.transitions_plan(bufs, ("obs", "flag"))
+    plan = gather.gather_plan(bufs, ("obs", "flag"))
     layout = plan.layout(flat)
     assert plan.layout(flat) is layout
     block = torch.empty(layout.nbytes, dtype=torch.uint8)
