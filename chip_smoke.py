@@ -33,7 +33,15 @@ random weights drawn from a seed):
   (MsPacman 100K shapes: 64x64 RGB, 9 actions) on the full 100,000-row
   ring, three gradient steps with the sequence GRU kernel (the dynamic
   recurrence, one launch a step), the GRU step kernel (imagination) and the
-  window gather, then the same steps plain.
+  window gather, then the same steps plain;
+- PPO and A2C (no kernel on this path): ``exp=ppo env=jax_cartpole
+  algo.env_backend=jax`` at its published config (4 envs, rollout 128,
+  10 epochs, minibatches of 64, dense 64 x 2) on the port's torch-tensor
+  envs with the fused collect; the card's first rollout and update
+  against the same on the CPU (same parameters, noise, data and
+  permutations), timed iterations with a profiled one, a collect at 256
+  envs; then PPO and A2C through ``sheeprl_tpu_torch.cli.run`` (two
+  iterations, a resume for one more) and one PPO iteration on Pendulum.
 
 Before the paths it checks the sum-tree kernels (sample, write, update) on a
 1,000,000-leaf tree, the per-shard descent and scatter on a 250,000-leaf
@@ -76,7 +84,7 @@ import time
 # `exp=dreamer_v3_XL_crafter algo.world_model.recurrent_model.fused=True
 # buffer.device_cache=True buffer.per_kernel=pallas buffer.memmap=False`
 # (a CPU test pins the two together): the keys build_agent and the train
-# step read.  The card's machine has no YAML parser, hence a dict.
+# step read, kept as a dict (the PPO phase composes the port's YAML tree).
 _LN = {"cls": "LayerNorm", "kw": {"eps": 0.001}}
 _CNN_LN = {"cls": "LayerNormChannelLast", "kw": {"eps": 0.001}}
 
@@ -302,6 +310,21 @@ SHARDED_DRAWS = 4 * TREE_DRAWS
 SHARE_SIGMAS = 4  # a shard's share of the draws against its share of the mass, in binomial standard errors
 SHARE_DRAWS = 25
 
+
+# The PPO phase: configuration #1 of `BASELINE.md`, `exp=ppo env=jax_cartpole
+# algo.env_backend=jax` as published: 4 envs, rollout 128, 10 epochs,
+# minibatches of 64, dense 64 x 2, tanh, Adam 1e-3 / eps 1e-4.  No cut.
+PPO_EXP = ["exp=ppo", "env=jax_cartpole", "algo.env_backend=jax", "metric.log_level=0"]
+PPO_ITERS = 3
+PPO_COLLECT_ENVS = 256  # the size at which howto/jax-envs.md quotes its collect rates
+PPO_RUN_TOL = 1e-5  # values and log-probs, the card's first rollout against the CPU's
+# Parameters after one update (80 Adam steps) on the same data, card against
+# CPU.  The limit lies between what a sound card reads and what an update
+# with one small fault reads: two samples exchanged between the first two
+# minibatches of the last epoch, which moves parameters by a fraction of an
+# Adam step.  The phase makes that faulted update on the CPU, reports it
+# (`max_abs_param_err_faulted_update`) and fails if the limit cannot see it.
+PPO_PARAM_TOL = 1e-5
 
 _T0 = time.perf_counter()
 
@@ -2411,6 +2434,204 @@ extern "C" int mma_peak_run(int bf16, float* out, int blocks, int iters) {
 """
 
 
+def _to(tree, device):
+    """Every tensor of a nested dict or list, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _max_err(a, b) -> float:
+    return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+
+
+def ppo_setup(torch, cfg, device: str):
+    """The PPO of ``cfg`` on ``device``: runtime, agent, optimizer state,
+    fused collector and update, as the port's loop builds them."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import _action_space_dims, build_ppo_optimizer, make_update_fn
+    from sheeprl_tpu_torch.envs.device.collect import FusedOnPolicyCollector
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.utils.env import make_train_envs
+    from sheeprl_tpu_torch.utils.utils import trainable_params
+
+    runtime = MeshRuntime(device=device, precision=cfg.fabric.precision, seed=int(cfg.seed)).launch()
+    envs = make_train_envs(cfg, runtime)
+    actions_dim, cont = _action_space_dims(envs.single_action_space)
+    agent = build_agent(runtime, actions_dim, cont, cfg, envs.single_observation_space)
+    tx = build_ppo_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, runtime.precision)
+    keys = list(cfg.algo.mlp_keys.encoder)
+    collector = FusedOnPolicyCollector(envs=envs, agent=agent, cfg=cfg, runtime=runtime, obs_keys=keys,
+                                       total_envs=envs.num_envs)
+    return {"runtime": runtime, "agent": agent, "opt": tx.init(trainable_params(agent)), "collector": collector,
+            "update": make_update_fn(runtime, agent, tx, cfg, keys)}
+
+
+def run_ppo_training(device: str, *, overrides=(), iters: int = PPO_ITERS, collect_envs: int = PPO_COLLECT_ENVS,
+                     profile: bool = True) -> dict:
+    """PPO on CartPole at the published config on ``device``: the card's
+    first rollout and update against the same on the CPU (same parameters,
+    noise, data and permutations), ``iters`` timed iterations of the fused
+    collect and ``make_update_fn``, one more under the profiler, and one
+    collect-only reading at ``collect_envs`` envs."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import epoch_permutations, fetch_metrics
+    from sheeprl_tpu_torch.config import compose
+
+    cuda = device.startswith("cuda")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = compose(overrides=[*PPO_EXP, f"fabric.accelerator={'cuda' if cuda else 'cpu'}", *overrides])
+    t_len, n_envs = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    n_total, mb = t_len * n_envs, int(cfg.algo.per_rank_batch_size)
+    n_used, epochs = -(-n_total // mb) * mb, int(cfg.algo.update_epochs)
+    coefs = {"clip_coef": float(cfg.algo.clip_coef), "ent_coef": float(cfg.algo.ent_coef),
+             "lr": float(cfg.algo.optimizer.learning_rate)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    card, ref = ppo_setup(torch, cfg, device), ppo_setup(torch, cfg, "cpu")
+    ref["agent"].load_state_dict({k: v.cpu() for k, v in card["agent"].state_dict().items()})
+    ref["collector"].carry = _to(card["collector"].carry, "cpu")
+    g = torch.Generator().manual_seed(int(cfg.seed))
+    noise = ref["collector"].draw_noise(generator=g, device="cpu")
+    perms = epoch_permutations(n_total, n_used, epochs, g, "cpu")
+
+    # iteration 1: the card's rollout and update, from CPU-drawn noise and permutations
+    col = card["collector"]
+    sync()
+    t0 = time.perf_counter()
+    col.carry, data, events = col.rollout(col.carry, _to(noise, device))
+    sync()
+    rollout_ms = [(time.perf_counter() - t0) * 1e3]
+    _, data_c, events_c = ref["collector"].rollout(ref["collector"].carry, noise)
+    if not (torch.equal(data["actions"].cpu(), data_c["actions"]) and torch.equal(data["dones"].cpu(), data_c["dones"])):
+        raise AssertionError("the card's first rollout took other actions or dones than the CPU's")
+    agree = {k: _max_err(data[k], data_c[k]) for k in ("values", "logprobs", "rewards", "state")}
+    if max(agree["values"], agree["logprobs"]) > PPO_RUN_TOL:
+        raise AssertionError(f"card vs CPU rollout: {agree} > {PPO_RUN_TOL}")
+    next_obs = {"state": col.carry["obs"]["state"]}
+    t0 = time.perf_counter()
+    metrics = card["update"](card["opt"], data, next_obs, perms=perms.to(device), **coefs)
+    sync()
+    update_ms = [(time.perf_counter() - t0) * 1e3]
+    before = {k: v.clone() for k, v in ref["agent"].state_dict().items()}
+    ref["update"](ref["opt"], _to(data, "cpu"), _to(next_obs, "cpu"), perms=perms, **coefs)
+    card_params = dict(card["agent"].named_parameters())
+    param_err = max(_max_err(card_params[k], v) for k, v in ref["agent"].named_parameters())
+    if param_err > PPO_PARAM_TOL:
+        raise AssertionError(f"card vs CPU parameters after one update: {param_err} > {PPO_PARAM_TOL}")
+    # the same update on the CPU with a fault: two samples exchanged between
+    # the first two minibatches of the last epoch; the limit must see it
+    faulted = ppo_setup(torch, cfg, "cpu")
+    faulted["agent"].load_state_dict(before)
+    bad = perms.clone()
+    bad[-1, [0, mb]] = bad[-1, [mb, 0]]
+    faulted["update"](faulted["opt"], _to(data, "cpu"), _to(next_obs, "cpu"), perms=bad, **coefs)
+    fault_err = max(_max_err(dict(faulted["agent"].named_parameters())[k], v)
+                    for k, v in ref["agent"].named_parameters())
+    if fault_err <= PPO_PARAM_TOL:
+        raise AssertionError(f"a faulted update reads {fault_err}, inside the parameter limit {PPO_PARAM_TOL}")
+    losses = [fetch_metrics(metrics)]
+    episodes = int(events["done"].sum())
+
+    # iterations 2..iters: the loop's own draws from the run's generator
+    for k in range(2, iters + 1):
+        sync()
+        t0 = time.perf_counter()
+        payload = col.collect(k)
+        sync()
+        rollout_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        metrics = card["update"](card["opt"], payload.data, payload.next_obs, **coefs)
+        sync()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(fetch_metrics(metrics))
+    if not all(all(v == v and abs(v) < 1e6 for v in m.values()) for m in losses):
+        raise AssertionError(f"non-finite PPO losses: {losses}")
+    res = {
+        "config": f"exp=ppo env=jax_cartpole: {n_envs} envs, rollout {t_len}, {epochs} epochs, minibatches of {mb}",
+        "rollout_ms": rollout_ms, "update_ms": update_ms,
+        "collect_env_steps_per_s": [n_total / (ms / 1e3) for ms in rollout_ms],
+        "losses": losses, "episodes_in_first_rollout": episodes,
+        "card_vs_cpu": {"actions": "identical", "dones": "identical", **{f"max_abs_err_{k}": v for k, v in agree.items()},
+                        "tol": PPO_RUN_TOL, "max_abs_param_err_after_update": param_err, "param_tol": PPO_PARAM_TOL,
+                        "max_abs_param_err_faulted_update": fault_err},
+    }
+    if cuda and profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        for name, fn in (("rollout", lambda: col.collect(iters + 1)),
+                         ("update", lambda: card["update"](card["opt"], payload.data, payload.next_obs, **coefs))):
+            sync()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+            res[f"{name}_profile"] = _device_time(torch, prof, 1, wall)
+    if cuda:
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # collect only, at collect_envs envs
+    wide = ppo_setup(torch, compose(overrides=[*PPO_EXP, f"fabric.accelerator={'cuda' if cuda else 'cpu'}",
+                                                *overrides, f"env.num_envs={collect_envs}"]), device)
+    wide["collector"].collect(1)
+    times = []
+    for k in range(2, 4):
+        sync()
+        t0 = time.perf_counter()
+        wide["collector"].collect(k)
+        sync()
+        times.append(time.perf_counter() - t0)
+    res["wide"] = {"num_envs": collect_envs, "rollout_ms": [t * 1e3 for t in times],
+                   "collect_env_steps_per_s": [t_len * collect_envs / t for t in times]}
+    return res
+
+
+def run_ppo_cli(device: str, *, overrides=()) -> dict:
+    """PPO and A2C on CartPole through ``sheeprl_tpu_torch.cli.run`` on
+    ``device`` (two iterations, then a resume from the final checkpoint for
+    one more), and one PPO iteration on Pendulum (continuous actions), each
+    in a temporary root dir."""
+    import tempfile
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ppo_cli_") as root:
+        for exp, env, iters in (("ppo", "jax_cartpole", 2), ("a2c", "jax_cartpole", 2), ("ppo", "jax_pendulum", 1)):
+            base = [f"exp={exp}", f"env={env}", "algo.env_backend=jax", f"fabric.accelerator={accel}",
+                    "metric.log_level=0", f"root_dir={root}", f"run_name={exp}_{env}", *overrides]
+            cfg = compose(overrides=base)
+            per_iter = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+            t0 = time.perf_counter()
+            first = run(base + [f"algo.total_steps={iters * per_iter}"])
+            wall = time.perf_counter() - t0
+            if first["test_reward"] is None or not os.path.exists(first["checkpoint"] or ""):
+                raise AssertionError(f"{exp} on {env}: no test reward or no final checkpoint: {first}")
+            row = {"iterations": first["iterations"], "policy_steps": first["policy_step"], "wall_s": wall,
+                   "test_reward": first["test_reward"], "checkpoint": os.path.relpath(first["checkpoint"], root)}
+            if env == "jax_cartpole":
+                resumed = run(base + [f"algo.total_steps={(iters + 1) * per_iter}", f"run_name={exp}_{env}_resumed",
+                                      f"checkpoint.resume_from={first['checkpoint']}"])
+                if resumed["iterations"] != 1 or resumed["policy_step"] != (iters + 1) * per_iter \
+                        or not os.path.exists(resumed["checkpoint"] or ""):
+                    raise AssertionError(f"{exp}: the resume did not run one more iteration to a checkpoint: {resumed}")
+                row["resumed"] = {"iterations": resumed["iterations"], "policy_steps": resumed["policy_step"],
+                                  "test_reward": resumed["test_reward"],
+                                  "checkpoint": os.path.relpath(resumed["checkpoint"], root)}
+            out[f"{exp}_{env}"] = row
+    return out
+
+
 def mma_sync_peak(torch) -> dict:
     """TFLOP/s of independent ``mma.sync`` products (TF32 m16n8k8, bf16
     m16n8k16) on 264 blocks of 8 warps: the ceiling of the GRU step's
@@ -2744,10 +2965,17 @@ def main() -> int:
     phase("training_decoupled_profile", **dec_profile)
     torch.cuda.empty_cache()
 
-    # 9. purity
+    # 9. PPO and A2C on the device envs: the update at the published config,
+    # the card against the CPU, collect at 256 envs, the CLI end to end
+    ppo = run_ppo_training("cuda")
+    phase("ppo_training", **ppo)
+    phase("ppo_cli", **run_ppo_cli("cuda"))
+    torch.cuda.empty_cache()
+
+    # 10. purity
     bad = sorted(
         m for m in sys.modules
-        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu")
+        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu", "gymnasium")
     )
     if bad:
         raise AssertionError(f"the port imported JAX-side modules: {bad[:5]}")
@@ -2848,6 +3076,7 @@ def main() -> int:
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels launched no time on the main path: {idle}")
+    phase("wall", script_s=time.perf_counter() - _T0)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,6 @@
+"""``python -m sheeprl_tpu_torch``: the port's training app."""
+
+from sheeprl_tpu_torch.cli import run
+
+if __name__ == "__main__":
+    run()

@@ -1,0 +1,18 @@
+"""A2C losses on torch tensors (counterpart of ``sheeprl_tpu/algos/a2c/loss.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from sheeprl_tpu_torch.algos.ppo.loss import _reduce
+
+__all__ = ["policy_loss", "value_loss"]
+
+
+def policy_loss(logprobs: torch.Tensor, advantages: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    """The vanilla policy-gradient objective (no ratio clipping)."""
+    return _reduce(-(logprobs * advantages), reduction)
+
+
+def value_loss(values: torch.Tensor, returns: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    return _reduce((values - returns) ** 2, reduction)

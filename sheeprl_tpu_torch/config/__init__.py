@@ -3,8 +3,10 @@ from sheeprl_tpu_torch.config.compose import (
     ConfigError,
     MissingValueError,
     compose,
+    _locate,
     deep_merge,
     dotdict,
+    instantiate,
     resolve,
 )
 
@@ -15,5 +17,6 @@ __all__ = [
     "compose",
     "deep_merge",
     "dotdict",
+    "instantiate",
     "resolve",
 ]

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import importlib
 import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -428,3 +429,56 @@ def compose(
     if do_resolve:
         tree = resolve(tree)
     return dotdict(tree)
+
+
+# top-level modules that a ``_target_`` of the port's tree must never name
+JAX_SIDE = ("jax", "jaxlib", "flax", "optax", "chex", "sheeprl_tpu")
+
+
+def _locate(path: str) -> Any:
+    """The object that a dotted ``_target_`` names (the longest importable
+    module prefix, then attributes)."""
+    parts = path.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            mod = importlib.import_module(".".join(parts[:i]))
+        except ModuleNotFoundError as e:
+            # a missing module further down the path is an error of its own
+            if e.name is not None and not ".".join(parts[:i]).startswith(e.name):
+                raise
+            continue
+        obj = mod
+        try:
+            for p in parts[i:]:
+                obj = getattr(obj, p)
+        except AttributeError:
+            break
+        return obj
+    raise ImportError(f"Cannot locate '{path}'")
+
+
+def instantiate(node: Any, *args, **overrides) -> Any:
+    """Instantiate a ``_target_`` config node (recursively), with
+    ``_partial_`` and ``_args_`` as ``hydra.utils.instantiate`` takes them.
+    A target whose top-level module is JAX's or the JAX package's raises:
+    the port never imports them."""
+    import functools
+
+    if isinstance(node, (list, tuple)):
+        return type(node)(instantiate(x) for x in node)
+    if not isinstance(node, dict):
+        return node
+    if "_target_" not in node:
+        return {k: instantiate(v) for k, v in node.items()}
+    node = dict(node)
+    target = node.pop("_target_")
+    if isinstance(target, str) and target.split(".")[0] in JAX_SIDE:
+        raise ImportError(f"'{target}' names a module of JAX or of the JAX package; the port's targets are sheeprl_tpu_torch.*")
+    partial = bool(node.pop("_partial_", False))
+    pos = list(node.pop("_args_", [])) + list(args)
+    kwargs = {k: instantiate(v) for k, v in node.items()}
+    kwargs.update(overrides)
+    fn = _locate(target) if isinstance(target, str) else target
+    if partial:
+        return functools.partial(fn, *pos, **kwargs)
+    return fn(*pos, **kwargs)

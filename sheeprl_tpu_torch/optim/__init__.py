@@ -16,6 +16,15 @@ front of it optax's
 ``weight_decay`` adds ``wd * p`` to the clipped gradient before Adam, as
 ``optax.add_decayed_weights`` chained in front does.
 
+``optax.rmsprop`` (A2C's optimizer) is :class:`RMSprop`, without
+centering or momentum (optax's default ``momentum=None``; 0 is the same
+update):
+
+    nu = (1 - decay) g^2 + decay nu,   p = p - lr g / sqrt(nu + eps)
+
+with ``eps`` inside the square root and ``nu`` starting at 0 (optax's
+``eps_in_sqrt`` and ``initial_scale``), behind the same clip and decay.
+
 Parameters are updated in place.  ``bf16-true`` (f32 master weights over
 bf16 parameters) is not ported yet and raises.
 """
@@ -27,10 +36,10 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["Adam", "AdamState", "build_optimizer", "finalize_optimizer", "global_norm"]
+__all__ = ["Adam", "AdamState", "RMSprop", "RMSpropState", "build_optimizer", "finalize_optimizer", "global_norm"]
 
 # the reference's torch argument names, mapped to optax's
-_RENAMES = {"lr": "learning_rate"}
+_RENAMES = {"lr": "learning_rate", "alpha": "decay"}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -46,6 +55,19 @@ class AdamState:
     count: int
     mu: Dict[str, torch.Tensor] = field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+def _clip_and_decay(opt, params, keys, grads, norm):
+    """optax's ``clip_by_global_norm`` then ``add_decayed_weights``."""
+    g = [grads[k] for k in keys]
+    if opt.max_grad_norm is not None:
+        norm = global_norm(g) if norm is None else norm
+        scale = torch.where(norm < opt.max_grad_norm, torch.ones_like(norm), opt.max_grad_norm / norm)
+        # (g / norm) * max_norm in optax; scaling by max/norm differs in the last ulp only
+        g = torch._foreach_mul(g, scale)
+    if opt.weight_decay:
+        g = torch._foreach_add(g, [params[k] for k in keys], alpha=opt.weight_decay)
+    return g
 
 
 class Adam:
@@ -82,14 +104,7 @@ class Adam:
         """One step, in place on ``params`` and ``state``.  ``norm`` is the
         gradients' global norm when the caller has it already."""
         keys = list(params)
-        g = [grads[k] for k in keys]
-        if self.max_grad_norm is not None:
-            norm = global_norm(g) if norm is None else norm
-            scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
-            # (g / norm) * max_norm in optax; scaling by max/norm differs in the last ulp only
-            g = torch._foreach_mul(g, scale)
-        if self.weight_decay:
-            g = torch._foreach_add(g, [params[k] for k in keys], alpha=self.weight_decay)
+        g = _clip_and_decay(self, params, keys, grads, norm)
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
         torch._foreach_mul_(mu, self.b1)
@@ -105,23 +120,81 @@ class Adam:
         torch._foreach_add_([params[k] for k in keys], mu_hat, alpha=-self.learning_rate)
 
 
-def finalize_optimizer(tx_kwargs: dict, weight_decay: float, max_grad_norm: Optional[float], precision: str) -> Adam:
+@dataclass
+class RMSpropState:
+    """optax ``ScaleByRmsState`` over named parameters."""
+
+    nu: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+class RMSprop:
+    """optax.rmsprop (not centred, no momentum), optionally behind a
+    global-norm clip and weight decay."""
+
+    def __init__(
+        self,
+        learning_rate: float,
+        decay: float = 0.9,
+        eps: float = 1e-8,
+        momentum: Optional[float] = None,
+        centered: bool = False,
+        max_grad_norm: Optional[float] = None,
+        weight_decay: float = 0.0,
+    ):
+        if centered or momentum:
+            raise NotImplementedError("optax.rmsprop with centered=True or momentum > 0 is not ported yet")
+        self.learning_rate = float(learning_rate)
+        self.decay = float(decay)
+        self.eps = float(eps)
+        self.max_grad_norm = None if not max_grad_norm or max_grad_norm <= 0 else float(max_grad_norm)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, params: Dict[str, torch.Tensor]) -> RMSpropState:
+        return RMSpropState({k: torch.zeros_like(p) for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(
+        self,
+        params: Dict[str, torch.Tensor],
+        grads: Dict[str, torch.Tensor],
+        state: RMSpropState,
+        norm: Optional[torch.Tensor] = None,
+    ) -> None:
+        """One step, in place on ``params`` and ``state``."""
+        keys = list(params)
+        g = _clip_and_decay(self, params, keys, grads, norm)
+        nu = [state.nu[k] for k in keys]
+        torch._foreach_mul_(nu, self.decay)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.decay)
+        scale = torch._foreach_add(nu, self.eps)
+        torch._foreach_rsqrt_(scale)
+        torch._foreach_mul_(scale, g)
+        torch._foreach_add_([params[k] for k in keys], scale, alpha=-self.learning_rate)
+
+
+_OPTIMIZERS = {"optax.adam": Adam, "optax.rmsprop": RMSprop}
+
+
+def finalize_optimizer(
+    tx_kwargs: dict, weight_decay: float, max_grad_norm: Optional[float], precision: str, cls=Adam
+):
     """The shared tail of every optimizer build: clip, weight decay,
     precision (``optim/__init__.py:finalize_optimizer``)."""
     if precision == "bf16-true":
         raise NotImplementedError(
             "fabric.precision=bf16-true (f32 master weights) is not ported yet; use 32-true or bf16-mixed"
         )
-    return Adam(**tx_kwargs, max_grad_norm=max_grad_norm, weight_decay=weight_decay)
+    return cls(**tx_kwargs, max_grad_norm=max_grad_norm, weight_decay=weight_decay)
 
 
-def build_optimizer(optim_cfg: dict, max_grad_norm: Optional[float] = None, precision: str = "32-true") -> Adam:
+def build_optimizer(optim_cfg: dict, max_grad_norm: Optional[float] = None, precision: str = "32-true"):
     """An optimizer from a ``_target_`` config node: ``optax.adam`` is the
-    port's :class:`Adam`; any other target raises."""
+    port's :class:`Adam`, ``optax.rmsprop`` its :class:`RMSprop`; any other
+    target raises."""
     cfg = dict(optim_cfg)
     target = cfg.pop("_target_")
-    if target != "optax.adam":
-        raise NotImplementedError(f"optimizer '{target}' is not ported yet; the port has optax.adam")
+    if target not in _OPTIMIZERS:
+        raise NotImplementedError(f"optimizer '{target}' is not ported yet; the port has {sorted(_OPTIMIZERS)}")
     kwargs = {}
     betas = cfg.pop("betas", None)
     if betas is not None:
@@ -129,4 +202,4 @@ def build_optimizer(optim_cfg: dict, max_grad_norm: Optional[float] = None, prec
     for k, v in cfg.items():
         kwargs[_RENAMES.get(k, k)] = float(v) if isinstance(v, str) else v
     weight_decay = float(kwargs.pop("weight_decay", 0.0) or 0.0)
-    return finalize_optimizer(kwargs, weight_decay, max_grad_norm, precision)
+    return finalize_optimizer(kwargs, weight_decay, max_grad_norm, precision, _OPTIMIZERS[target])

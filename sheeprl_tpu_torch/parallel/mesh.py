@@ -17,6 +17,16 @@ Precision ``32-true`` (the default) computes in f32 and turns TF32 off for
 matmuls and cuDNN convolutions (cuDNN convolutions default to TF32, which
 keeps about three decimal digits); ``bf16-mixed``/``bf16-true`` compute in
 bf16 with f32 parameters.
+
+The runtime takes the ``fabric`` config node as it stands
+(``_target_: sheeprl_tpu_torch.parallel.mesh.MeshRuntime``):
+``accelerator`` ``cpu`` runs on the CPU, ``auto``/``gpu``/``cuda`` on the
+card (and raises without one); more than one node, a ``strategy`` other
+than DDP and an explicit ``mesh_shape`` raise (ROADMAP A5).  The JAX
+runtime's player knobs (``player_device``, ``player_params_cutoff_mb``) are
+not in the port's ``fabric`` node: its players act on the runtime's device.
+``generator`` is the run's ``torch.Generator`` on that device, seeded by
+``seed_everything`` (the JAX runtime's key stream).
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from sheeprl_tpu_torch.utils.utils import resolve_device
 __all__ = ["MeshRuntime"]
 
 _PRECISIONS = ("32-true", "bf16-mixed", "bf16-true")
+# fabric.accelerator -> device (None: the default device, the card)
+_ACCELERATORS = {"auto": None, "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 
 class MeshRuntime:
@@ -43,7 +55,20 @@ class MeshRuntime:
         seed: Optional[int] = None,
         *,
         devices: int = 1,
+        accelerator: Optional[str] = None,
+        num_nodes: int = 1,
+        strategy: str = "auto",
+        mesh_shape: Any = "auto",
     ):
+        if accelerator is not None and device is None:
+            device = _ACCELERATORS.get(str(accelerator).lower(), "unknown")
+            if device == "unknown":
+                raise ValueError(f"fabric.accelerator must be one of {sorted(_ACCELERATORS)}, got '{accelerator}'")
+        if int(num_nodes) != 1 or str(strategy) not in ("auto", "dp", "ddp") or str(mesh_shape) != "auto":
+            raise NotImplementedError(
+                f"num_nodes={num_nodes}, strategy='{strategy}', mesh_shape='{mesh_shape}': multi-node runs, FSDP "
+                "and explicit mesh shapes wait for ROADMAP A5"
+            )
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {_PRECISIONS}, got '{precision}'")
         if isinstance(device, (list, tuple)):
@@ -61,6 +86,18 @@ class MeshRuntime:
         self.seed = None if seed is None else int(seed)
         self._n_shards = int(devices)
         self._launched = False
+        self.generator = torch.Generator(device=self.device)
+        if self.seed is not None:
+            self.generator.manual_seed(self.seed)
+
+    # ------------------------------------------------------------ processes
+    # one process drives the one device: rank 0 of a world of one process
+    is_global_zero = True
+    global_rank = 0
+
+    def print(self, *args, **kwargs) -> None:
+        """``print`` on the global rank zero (the only process here)."""
+        print(*args, **kwargs)
 
     # ------------------------------------------------------------------ mesh
     @property
@@ -107,4 +144,5 @@ class MeshRuntime:
         random.seed(seed)
         np.random.seed(seed)
         torch.manual_seed(seed)
+        self.generator.manual_seed(int(seed))
         self.seed = int(seed)

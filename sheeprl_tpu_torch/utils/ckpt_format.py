@@ -1,11 +1,16 @@
-"""Reader of the ``sheeprl_tpu_ckpt_v1`` checkpoint format, numpy only.
+"""The ``sheeprl_tpu_ckpt_v1`` checkpoint format, numpy only.
 
-The port's copy of the reader half of ``sheeprl_tpu/utils/ckpt_format.py``:
-a checkpoint is one zip (numpy ``savez``) holding ``manifest`` (a JSON
-document stored as a uint8 array that describes the nested structure) and
-one ``leaf_N.npy`` entry per array leaf.  Files written before that format
-(cloudpickle blobs) raise :class:`CheckpointCorruptError`: they are never
-unpickled.
+The port's copy of ``sheeprl_tpu/utils/ckpt_format.py``: a checkpoint is
+one zip (numpy ``savez``) holding ``manifest`` (a JSON document stored as a
+uint8 array that describes the nested structure) and one ``leaf_N.npy``
+entry per array leaf.  Files written before that format (cloudpickle
+blobs) raise :class:`CheckpointCorruptError`: they are never unpickled.
+
+:func:`save_state` writes dicts, lists, tuples, ``None``, Python scalars
+and numpy arrays, atomically (a tmp file, then a rename).  It writes no
+per-leaf content digests (``leaf_crc``): the JAX package's
+``validate_checkpoint`` skips its digest pass for such files, and the
+zip's member CRCs still catch truncation.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ __all__ = [
     "is_v1",
     "load_checkpoint",
     "load_state",
+    "save_state",
     "validate_checkpoint",
 ]
 
@@ -39,6 +45,52 @@ class CheckpointCorruptError(RuntimeError):
         self.path = str(path)
         self.reason = reason
         super().__init__(f"corrupt checkpoint {self.path}: {reason}")
+
+
+_PRIMITIVES = (bool, int, float, str)
+
+
+def _encode(node: Any, leaves: list) -> Any:
+    """Structure spec for ``node``; array leaves appended to ``leaves``."""
+    if node is None:
+        return {"__t__": "none"}
+    if isinstance(node, _PRIMITIVES):
+        return {"__t__": "py", "v": node}
+    if isinstance(node, (np.ndarray, np.generic)):
+        arr = np.asarray(node)
+        if arr.dtype == object:
+            raise TypeError("object arrays are not checkpointable")
+        leaves.append(arr)
+        return {"__t__": "leaf", "i": len(leaves) - 1}
+    if isinstance(node, tuple):
+        return {"__t__": "tuple", "items": [_encode(x, leaves) for x in node]}
+    if isinstance(node, list):
+        return {"__t__": "list", "items": [_encode(x, leaves) for x in node]}
+    if isinstance(node, dict):
+        if not all(isinstance(k, str) for k in node):
+            raise TypeError(f"non-string dict keys are not checkpointable: {list(node)[:3]}")
+        return {"__t__": "dict", "items": {k: _encode(v, leaves) for k, v in node.items()}}
+    raise TypeError(f"{type(node).__module__}.{type(node).__qualname__} is not checkpointable; convert it to numpy first")
+
+
+def save_state(path: Union[str, os.PathLike], state: Any) -> str:
+    """Write ``state`` (a host-side tree) to ``path`` atomically; ``*.ckpt.tmp``
+    files left by a writer that died are removed first."""
+    leaves: list = []
+    tree = _encode(state, leaves)
+    manifest = json.dumps({"version": FORMAT_VERSION, "tree": tree}).encode()
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    for orphan in path.parent.glob("*.ckpt.tmp"):
+        if orphan != tmp:
+            orphan.unlink(missing_ok=True)
+    arrays = {f"leaf_{i}": arr for i, arr in enumerate(leaves)}
+    arrays["manifest"] = np.frombuffer(manifest, dtype=np.uint8)
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+    return str(path)
 
 
 def _decode(spec: Any, get_leaf) -> Any:

@@ -1,4 +1,5 @@
-"""Carry the JAX package's DreamerV3 and SAC state into the port's modules.
+"""Carry the JAX package's DreamerV3, SAC and PPO/A2C state into the port's
+modules, and the PPO/A2C state back.
 
 ``flax_to_torch(tree, agent)`` turns a parameter tree of ``sheeprl_tpu``
 (numpy arrays, as a checkpoint holds them) into a ``state_dict``:
@@ -13,7 +14,14 @@
   ``{"actor", "critic", "target_critic", "log_alpha"}``: the actor's
   ``MLP_0/Dense_{0,1}`` trunk and ``Dense_{0,1}`` mean/log-std heads, the
   stacked critics' ``MLP_0/Dense_i`` kernels (N, in, out) and biases
-  (N, out) kept as they are (the layout the batched critic reads).
+  (N, out) kept as they are (the layout the batched critic reads);
+- for a :class:`~sheeprl_tpu_torch.algos.ppo.agent.PPOAgentModule` (PPO
+  and A2C), the flax variables ``{"params": {"feature_extractor":
+  {"mlp_encoder": {"MLP_0": ...}}, "critic", "actor_backbone",
+  "actor_heads_<i>"}}``, each MLP's ``Dense_<i>`` (and ``LayerNorm_<i>``)
+  hidden layers and its ``Dense_<n>`` head.  :func:`torch_to_flax` is the
+  inverse, which the port's checkpoints write, so that the JAX package's
+  ``build_agent`` reads their ``"agent"``.
 
 Layouts:
 
@@ -41,7 +49,18 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["ConversionError", "flax_to_torch", "flatten_tree", "load_flax_params", "moments_to_torch", "opt_state_to_torch"]
+__all__ = [
+    "ConversionError",
+    "flatten_tree",
+    "flax_to_torch",
+    "load_flax_params",
+    "moments_to_torch",
+    "opt_state_from_tree",
+    "opt_state_to_torch",
+    "opt_state_to_tree",
+    "torch_to_flax",
+    "unflatten_tree",
+]
 
 # world-model subtrees of the JAX tree that the player does not run
 UNSERVED = ("observation_model", "reward_model", "continue_model")
@@ -59,6 +78,18 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
             out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
         return out
     return {prefix: np.asarray(tree)}
+
+
+def unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`flatten_tree`."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = out
+        *parents, last = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
 
 
 class _Mapper:
@@ -168,6 +199,63 @@ def _sac_critic(m: _Mapper, critic, src: str, dst: str) -> None:
         m.put(f"{dst}.biases.{i}", m.take(f"{src}/params/MLP_0/Dense_{i}/bias"))
 
 
+class _Pairs:
+    """Records the (flax path, port key, transposed) pairs of a mapping
+    written against :class:`_Mapper`'s ``dense``/``norm``, for the inverse."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def dense(self, src: str, dst: str) -> None:
+        self.pairs += [(f"{src}/kernel", f"{dst}.weight", True), (f"{src}/bias", f"{dst}.bias", False)]
+
+    def norm(self, src: str, dst: str) -> None:
+        self.pairs += [(f"{src}/scale", f"{dst}.weight", False), (f"{src}/bias", f"{dst}.bias", False)]
+
+
+def _flax_mlp(m, src: str, dst: str, mlp: torch.nn.Module) -> None:
+    """A ``models.MLP``: hidden ``Dense_<i>`` (+ ``LayerNorm_<i>``), then
+    the head ``Dense_<n>``."""
+    n = len(mlp.layers)
+    for i in range(n):
+        m.dense(f"{src}/Dense_{i}", f"{dst}.layers.{i}")
+        if not isinstance(mlp.norms[i], torch.nn.Identity):
+            m.norm(f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}")
+    if mlp.head is not None:
+        m.dense(f"{src}/Dense_{n}", f"{dst}.head")
+
+
+def _ppo(m, agent: torch.nn.Module) -> None:
+    _flax_mlp(m, "params/feature_extractor/mlp_encoder/MLP_0", "feature_extractor.mlp_encoder.mlp",
+              agent.feature_extractor.mlp_encoder.mlp)
+    _flax_mlp(m, "params/critic", "critic", agent.critic)
+    _flax_mlp(m, "params/actor_backbone", "actor_backbone", agent.actor_backbone)
+    for i in range(len(agent.actor_heads)):
+        m.dense(f"params/actor_heads_{i}", f"actor_heads.{i}")
+
+
+def _is_ppo(agent: torch.nn.Module) -> bool:
+    return hasattr(agent, "actor_backbone")
+
+
+def torch_to_flax(agent: torch.nn.Module, tensors: Dict[str, torch.Tensor] = None) -> Dict[str, Any]:
+    """The JAX package's PPO/A2C variables tree (numpy f32) from ``agent``'s
+    parameters, or from ``tensors`` keyed as its ``state_dict`` (an Adam
+    moment, say)."""
+    if not _is_ppo(agent):
+        raise ConversionError(f"torch_to_flax maps PPO/A2C agents, got {type(agent).__name__}")
+    rec = _Pairs()
+    _ppo(rec, agent)
+    src = agent.state_dict() if tensors is None else tensors
+    if set(src) != {dst for _, dst, _ in rec.pairs}:
+        raise ConversionError(f"tensors do not match the agent's parameters: {sorted(set(src) ^ {d for _, d, _ in rec.pairs})[:8]}")
+    flat = {}
+    for path, dst, transposed in rec.pairs:
+        arr = src[dst].detach().to("cpu", torch.float32).numpy()
+        flat[path] = np.ascontiguousarray(arr.T if transposed else arr)
+    return unflatten_tree(flat)
+
+
 def _is_sac(agent: torch.nn.Module) -> bool:
     return hasattr(agent, "log_alpha")
 
@@ -193,8 +281,14 @@ def _is_full_agent(agent: torch.nn.Module) -> bool:
 
 def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` for ``agent`` (a ``DreamerPlayer``, a
-    ``DreamerAgent`` or a ``SACAgent``) from the JAX tree described in the
-    module docstring."""
+    ``DreamerAgent``, a ``SACAgent`` or a ``PPOAgentModule``) from the JAX
+    tree described in the module docstring."""
+    if _is_ppo(agent):
+        if set(tree) != {"params"}:
+            raise ConversionError(f"expected keys ['params'], got {sorted(tree)}")
+        m = _Mapper(flatten_tree(tree))
+        _ppo(m, agent)
+        return _finish(m, agent.state_dict())
     if _is_sac(agent):
         expect = {"actor", "critic", "target_critic", "log_alpha"}
         if set(tree) != expect:
@@ -289,3 +383,35 @@ def load_flax_params(agent: torch.nn.Module, tree: Dict[str, Any]) -> torch.nn.M
     """Convert ``tree`` and load it into ``agent`` (on the agent's device)."""
     agent.load_state_dict(flax_to_torch(tree, agent), strict=True)
     return agent
+
+
+def opt_state_to_tree(state: Any, agent: torch.nn.Module) -> Dict[str, Any]:
+    """A PPO/A2C agent's optimizer state for a checkpoint, its moments in the
+    JAX package's parameter layout: ``{"count", "mu", "nu"}`` for Adam,
+    ``{"nu"}`` for RMSprop."""
+    from sheeprl_tpu_torch.optim import AdamState
+
+    if isinstance(state, AdamState):
+        return {"count": int(state.count), "mu": torch_to_flax(agent, state.mu), "nu": torch_to_flax(agent, state.nu)}
+    return {"nu": torch_to_flax(agent, state.nu)}
+
+
+def opt_state_from_tree(tree: Dict[str, Any], agent: torch.nn.Module, tx) -> Any:
+    """The inverse of :func:`opt_state_to_tree` for ``tx`` (the port's
+    ``Adam`` or ``RMSprop``), on the agent's device."""
+    from sheeprl_tpu_torch.optim import Adam, AdamState, RMSpropState
+
+    dev = next(agent.parameters()).device
+    want = {"count", "mu", "nu"} if isinstance(tx, Adam) else {"nu"}
+    if not isinstance(tree, dict) or set(tree) != want:
+        raise ConversionError(
+            f"the checkpoint's optimizer state is not the port's {type(tx).__name__} state (keys {sorted(want)}); "
+            "only checkpoints written by the port resume"
+        )
+
+    def moment(t):
+        return {k: v.to(dev) for k, v in flax_to_torch(t, agent).items()}
+
+    if isinstance(tx, Adam):
+        return AdamState(int(np.asarray(tree["count"])), moment(tree["mu"]), moment(tree["nu"]))
+    return RMSpropState(moment(tree["nu"]))

@@ -2,16 +2,22 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "MetricFetchGate",
     "ema_",
+    "gae",
     "grads_or_zeros",
     "lambda_values",
+    "normalize_tensor",
+    "polynomial_decay",
     "resolve_device",
+    "save_configs",
     "symexp",
     "symlog",
     "trainable_params",
@@ -64,6 +70,79 @@ def lambda_values(
         carry = interm[t] + continues[t] * lmbda * carry
         out.append(carry)
     return torch.stack(out[::-1], 0)
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    gamma: float,
+    gae_lambda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over time-major (T, B, 1) inputs,
+    ``next_value`` (B, 1): ``(returns, advantages)``, f32.  The TD errors
+    are one pass over the rollout; the recursion
+    ``A[t] = delta[t] + gamma lambda (1 - done[t]) A[t+1]`` is a reverse
+    loop of two operations a step."""
+    values = values.float()
+    rewards = rewards.float()
+    not_done = 1.0 - dones.float()
+    next_values = torch.cat([values[1:], next_value.float()[None]], 0)
+    delta = rewards + gamma * next_values * not_done - values
+    coef = gamma * gae_lambda * not_done
+    last = torch.zeros_like(next_value, dtype=torch.float32)
+    out = []
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        last = delta[t] + coef[t] * last
+        out.append(last)
+    advantages = torch.stack(out[::-1], 0)
+    return advantages + values, advantages
+
+
+def normalize_tensor(x: torch.Tensor, eps: float = 1e-8, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Optionally masked) standardisation with the population std, as
+    ``jnp.std`` computes it."""
+    if mask is None:
+        return (x - x.mean()) / (x.std(correction=0) + eps)
+    m = mask.to(x.dtype)
+    n = m.sum()
+    mean = (x * m).sum() / n
+    var = (((x - mean) ** 2) * m).sum() / n
+    return torch.where(mask, (x - mean) / (torch.sqrt(var) + eps), x)
+
+
+def polynomial_decay(
+    current_step: int, *, initial: float = 1.0, final: float = 0.0, max_decay_steps: int = 100, power: float = 1.0
+) -> float:
+    """Host-side scheduler (the reference's ``polynomial_decay``)."""
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
+
+
+class MetricFetchGate:
+    """Fires on every ``metric.fetch_every``-th call (the first included):
+    how often the loops bring losses and episode events to the host.
+    ``every > 1`` subsamples: what the skipped calls held is dropped."""
+
+    def __init__(self, every: Any):
+        self.every = max(1, int(every or 1))
+        self._n = 0
+
+    def __call__(self) -> bool:
+        hit = self._n % self.every == 0
+        self._n += 1
+        return hit
+
+
+def save_configs(cfg: Any, log_dir: str) -> None:
+    """Write the resolved run config to ``<log_dir>/config.yaml``."""
+    import yaml
+
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg.as_dict() if hasattr(cfg, "as_dict") else dict(cfg), f)
 
 
 def resolve_device(device=None) -> torch.device:

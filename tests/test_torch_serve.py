@@ -286,7 +286,7 @@ def _py_files():
 
 @pytest.mark.parametrize("path", list(_py_files()), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax_side_module(path):
-    banned = {"jax", "jaxlib", "flax", "optax", "chex", "sheeprl_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "chex", "sheeprl_tpu", "gymnasium", "gym"}
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
         if isinstance(node, ast.Import):
@@ -314,6 +314,16 @@ def test_default_device_entry_points_raise_without_cuda():
         DeviceReplayCache(4, 1, prioritized=True, kernel="pallas")
     with pytest.raises(RuntimeError, match="CUDA"):
         PriorityTree(8)
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.envs.device import CartPole, DeviceVectorEnv
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(["exp=ppo", "env=jax_cartpole", "algo.env_backend=jax", "metric.log_level=0", "root_dir=unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceVectorEnv(CartPole(), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshRuntime(accelerator="auto")
+    assert DeviceVectorEnv(CartPole(), 2, device="cpu").device.type == "cpu"
     assert DeviceReplayCache(4, 1, device="cpu").device.type == "cpu"
     assert PriorityTree(8, device="cpu").tree.device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
