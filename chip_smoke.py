@@ -41,7 +41,16 @@ random weights drawn from a seed):
   against the same on the CPU (same parameters, noise, data and
   permutations), timed iterations with a profiled one, a collect at 256
   envs; then PPO and A2C through ``sheeprl_tpu_torch.cli.run`` (two
-  iterations, a resume for one more) and one PPO iteration on Pendulum.
+  iterations, a resume for one more) and one PPO iteration on Pendulum;
+- DreamerV3 and SAC through ``sheeprl_tpu_torch.cli.run`` (the off-policy
+  env loops on the device envs): DV3-S with MLP keys on GridWorld (the
+  fused GRU step, the device cache) and on CartPole (decoupled RSSM,
+  prioritized replay), 1,024 warm-up steps and 64 training iterations
+  each, then a resume, and the checkpoint's player on the card against the
+  plain CPU player; SAC on Pendulum, about 30 dispatches of 64 x 256 with
+  prioritized replay, then a resume.  Each run's kernel counts are set to
+  0 just before it and read after it: every kernel its configuration
+  reaches must have launched.
 
 Before the paths it checks the sum-tree kernels (sample, write, update) on a
 1,000,000-leaf tree, the per-shard descent and scatter on a 250,000-leaf
@@ -325,6 +334,38 @@ PPO_RUN_TOL = 1e-5  # values and log-probs, the card's first rollout against the
 # Adam step.  The phase makes that faulted update on the CPU, reports it
 # (`max_abs_param_err_faulted_update`) and fails if the limit cannot see it.
 PPO_PARAM_TOL = 1e-5
+
+# The off-policy CLI phases: DreamerV3 (exp=dreamer_v3, DreamerV3-S widths,
+# MLP keys only) and SAC (exp=sac) through sheeprl_tpu_torch.cli.run on the
+# port's device envs.  DV3 steps one env, as the DV3 exps' published
+# configs do (env.num_envs: 1), so that a training iteration is one
+# gradient step at replay_ratio 1; SAC the env config's 4.
+DV3_CLI_EXP = ["exp=dreamer_v3", "algo.env_backend=jax", "algo.cnn_keys.encoder=[]", "algo.cnn_keys.decoder=[]",
+               "algo.mlp_keys.encoder=[state]", "algo.mlp_keys.decoder=[state]", "env.num_envs=1", "metric.log_level=0"]
+DV3_CLI_RUNS = {
+    "gridworld": ["env=jax_gridworld", "algo.world_model.recurrent_model.fused=True", "buffer.device_cache=True",
+                  "buffer.per_kernel=pallas"],
+    "cartpole": ["env=jax_cartpole", "algo.world_model.decoupled_rssm=True",
+                 "algo.world_model.recurrent_model.fused_seq=True", "buffer.prioritized=True", "buffer.per_kernel=pallas"],
+}
+# the kernels each run's configuration reaches (PERF.md's kernel table: #1, #2/#2a, #3, #5, #6)
+DV3_CLI_KERNELS = {
+    "gridworld": ("gru_cell", "gather_windows"),
+    "cartpole": ("gru_sequence", "gru_input_product", "gather_windows", "sum_tree_sample", "sum_tree_write"),
+}
+DV3_CLI_LEARNING_STARTS = 1024
+DV3_CLI_TRAIN_ITERS = 64
+SAC_CLI_EXP = ["exp=sac", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax",
+               "algo.mlp_keys.encoder=[state]", "algo.hidden_size=256", "algo.per_rank_batch_size=256",
+               "buffer.device_cache=True", "buffer.prioritized=True", "buffer.per_kernel=pallas",
+               "algo.dispatch_batch=64", "metric.log_level=0"]
+SAC_CLI_KERNELS = ("gather_transitions", "sum_tree_sample", "sum_tree_write", "sum_tree_update")
+SAC_CLI_DISPATCHES = 30
+# Each CLI configuration runs once more, short, for a torch.profiler window
+# over CLI_PROFILE_ITERS training calls after CLI_PROFILE_START warm ones,
+# so that the profiler's cost stays out of the measured run's rates.
+CLI_PROFILE_START = 3
+CLI_PROFILE_ITERS = 4
 
 _T0 = time.perf_counter()
 
@@ -2451,7 +2492,8 @@ def ppo_setup(torch, cfg, device: str):
     """The PPO of ``cfg`` on ``device``: runtime, agent, optimizer state,
     fused collector and update, as the port's loop builds them."""
     from sheeprl_tpu_torch.algos.ppo.agent import build_agent
-    from sheeprl_tpu_torch.algos.ppo.ppo import _action_space_dims, build_ppo_optimizer, make_update_fn
+    from sheeprl_tpu_torch.algos.ppo.ppo import build_ppo_optimizer, make_update_fn
+    from sheeprl_tpu_torch.envs.spaces import action_space_dims
     from sheeprl_tpu_torch.envs.device.collect import FusedOnPolicyCollector
     from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
     from sheeprl_tpu_torch.utils.env import make_train_envs
@@ -2459,7 +2501,7 @@ def ppo_setup(torch, cfg, device: str):
 
     runtime = MeshRuntime(device=device, precision=cfg.fabric.precision, seed=int(cfg.seed)).launch()
     envs = make_train_envs(cfg, runtime)
-    actions_dim, cont = _action_space_dims(envs.single_action_space)
+    actions_dim, cont = action_space_dims(envs.single_action_space)
     agent = build_agent(runtime, actions_dim, cont, cfg, envs.single_observation_space)
     tx = build_ppo_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, runtime.precision)
     keys = list(cfg.algo.mlp_keys.encoder)
@@ -2478,7 +2520,8 @@ def run_ppo_training(device: str, *, overrides=(), iters: int = PPO_ITERS, colle
     collect-only reading at ``collect_envs`` envs."""
     import torch
 
-    from sheeprl_tpu_torch.algos.ppo.ppo import epoch_permutations, fetch_metrics
+    from sheeprl_tpu_torch.algos.ppo.ppo import epoch_permutations
+    from sheeprl_tpu_torch.utils.utils import fetch_metrics
     from sheeprl_tpu_torch.config import compose
 
     cuda = device.startswith("cuda")
@@ -2630,6 +2673,420 @@ def run_ppo_cli(device: str, *, overrides=()) -> dict:
                                   "checkpoint": os.path.relpath(resumed["checkpoint"], root)}
             out[f"{exp}_{env}"] = row
     return out
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its launches)."""
+    from sheeprl_tpu_torch.ops import gather, gru_cell, per, seq_gru
+
+    return {
+        "gru_cell": gru_cell.gru_cell, "gru_sequence": seq_gru.gru_sequence,
+        "gru_input_product": seq_gru.gru_input_product, "gather_windows": gather.gather_windows,
+        "gather_transitions": gather.gather_transitions, "sum_tree_sample": per.sum_tree_sample,
+        "sum_tree_write": per.sum_tree_write, "sum_tree_update": per.sum_tree_update,
+        "sum_tree_descend": per.sum_tree_descend, "sum_tree_scatter": per.sum_tree_scatter,
+    }
+
+
+def _uncounted(fn):
+    """``fn()`` with every kernel count put back after it: launches made to
+    hold a kernel against its plain version do not count."""
+    counters = kernel_counters()
+    saved = {k: c.launches for k, c in counters.items()}
+    try:
+        return fn()
+    finally:
+        for k, c in counters.items():
+            c.launches = saved[k]
+
+
+def cache_draw_vs_plain(cache, *, n_samples: int, batch: int, seq_len=None, beta: float = 0.0, sample_next_obs: bool = False,
+                        obs_keys=(), flush_rows: int = 0) -> dict:
+    """One draw of ``n_samples`` batches from a CLI run's own device cache,
+    at the run's shapes, through the kernels
+    (``cache.kernel = "pallas"``) and through their plain versions
+    (``"lax"``), from the same tree and the same uniforms; the tree, its
+    running max and the kernel setting are put back after.
+
+    With ``seq_len`` (DreamerV3) the draw is ``sample``'s windows (#3), or
+    ``sample_per``'s (#5, #3, and #6 for the start decay) on a prioritized
+    cache.  Without it (SAC) the draw is ``sample_transitions_per`` (#5,
+    #4), then the TD update of the drawn leaves (#7) and the write of the
+    next flush's ``flush_rows`` rows an env at the running max (#6).  The
+    drawn leaves, the batches, the tree and the running max must be
+    byte-identical; the IS weights agree to W_RTOL (powf on the card)."""
+    import numpy as np
+    import torch
+
+    tree, kernel0 = cache.tree, cache.kernel
+    snap = None if tree is None else (tree.tree.clone(), tree.max_priority.clone())
+    kernels = ["gather_windows" if seq_len is not None else "gather_transitions"]
+    runs = {}
+    try:
+        for kernel in ("pallas", "lax"):
+            if snap is not None:
+                tree.tree.copy_(snap[0])
+                tree.max_priority = snap[1].clone()
+            cache.kernel = kernel
+            gen = torch.Generator(device=cache.device).manual_seed(11)
+            got = {}
+            if seq_len is not None and tree is None:
+                batch_out = cache.sample(n_samples, batch, seq_len, gen)
+            elif seq_len is not None:
+                inner = tree.sample
+
+                def recording(*a, **kw):
+                    leaf, w = inner(*a, **kw)
+                    got["leaves"] = leaf.clone()
+                    return leaf, w
+
+                tree.sample = recording
+                try:
+                    batch_out = cache.sample_per(n_samples, batch, seq_len, gen, beta=beta)
+                finally:
+                    del tree.sample
+            else:
+                batch_out, leaves = cache.sample_transitions_per(
+                    n_samples, batch, gen, beta, sample_next_obs=sample_next_obs, obs_keys=obs_keys)
+                got["leaves"], got["weights"] = leaves, batch_out.pop("is_weights")
+                cache.update_priorities(leaves, torch.rand(leaves.shape, generator=gen, device=cache.device) * 4)
+                rows = (cache._pos[None, :] + np.arange(flush_rows)[:, None]) % cache.capacity
+                flush = torch.from_numpy((rows * cache.n_envs + np.arange(cache.n_envs)[None, :]).reshape(-1))
+                tree.seed_max(flush.to(cache.device), torch.ones(flush.shape, dtype=torch.bool, device=cache.device))
+            if isinstance(batch_out, list):
+                batch_out = {k: torch.stack([b[k] for b in batch_out]) for k in batch_out[0]}
+            got.update({f"batch/{k}": v for k, v in batch_out.items()})
+            if tree is not None:
+                got["tree"], got["max_priority"] = tree.tree[1:].clone(), tree.max_priority.clone()
+            runs[kernel] = got
+    finally:
+        if snap is not None:
+            tree.tree.copy_(snap[0])
+            tree.max_priority = snap[1]
+        cache.kernel = kernel0
+    fast, plain = runs["pallas"], runs["lax"]
+    w_err = 0.0
+    for k, want in plain.items():
+        have = fast[k]
+        if have.dtype != want.dtype or have.shape != want.shape:
+            raise AssertionError(f"draw from the run's cache: '{k}' is {have.dtype} {tuple(have.shape)} from the "
+                                 f"kernels, {want.dtype} {tuple(want.shape)} from the plain versions")
+        if k == "weights":
+            w_err = float(((have - want).abs() / want.abs()).max())
+            if not np.isfinite(w_err) or w_err > W_RTOL:
+                raise AssertionError(f"draw from the run's cache: IS weights differ by {w_err} > {W_RTOL}")
+        elif not torch.equal(have, want):
+            raise AssertionError(f"draw from the run's cache: '{k}' from the kernels is not byte-identical "
+                                 "to the plain versions")
+    if tree is not None:
+        kernels += ["sum_tree_sample", "sum_tree_write"] + ([] if seq_len is not None else ["sum_tree_update"])
+    return {"kernels": kernels, "rows": n_samples * batch * (seq_len or 1), "draws": n_samples * batch,
+            "keys": sorted(k[6:] for k in plain if k.startswith("batch/")), "bytes_equal": True,
+            "max_rel_err_w": w_err if "weights" in plain else None,
+            "tree_leaves": None if tree is None else tree.n_leaves}
+
+
+def _dv3_draw_check(state, rb, cache, cfg, gradient_steps, *args, **kwargs) -> dict:
+    """``cache_draw_vs_plain`` at the DreamerV3 call's gradient steps, batch
+    and sequence length."""
+    return cache_draw_vs_plain(cache, n_samples=int(gradient_steps), batch=int(cfg.algo.per_rank_batch_size),
+                               seq_len=int(cfg.algo.per_rank_sequence_length))
+
+
+def _sac_draw_check(state, rb, cache, cfg, ema_flags, policy_step, beta_fn, *args, **kwargs) -> dict:
+    """``cache_draw_vs_plain`` at the SAC dispatch's gradient steps, batch,
+    beta and flush window."""
+    from sheeprl_tpu_torch.algos.sac.sac import OBS_KEYS
+
+    return cache_draw_vs_plain(
+        cache, n_samples=len(ema_flags), batch=int(cfg.algo.per_rank_batch_size), beta=float(beta_fn(policy_step)),
+        sample_next_obs=bool(cfg.buffer.sample_next_obs), obs_keys=OBS_KEYS,
+        flush_rows=max(1, int(cfg.algo.dispatch_batch) // int(cfg.env.num_envs)),
+    )
+
+
+class _TrainWindow:
+    """Wraps the loop's training call (``module.<name>``) of a CLI run: keeps
+    each call's host time (``call_ms``), and puts ``torch.profiler`` over
+    ``iters`` training iterations, starting before the ``start``-th call and
+    ending before the ``start + iters``-th (whole iterations, collect
+    included).  With ``check``, right after the first call returns,
+    ``check(*its arguments)`` holds a draw from the run's own cache against
+    the plain versions (``checked``: its result; ``check_s``: its seconds,
+    which the rates leave out); its launches do not count."""
+
+    def __init__(self, module, name: str, start: int, iters: int, enabled: bool, check=None):
+        self.module, self.name, self.inner = module, name, getattr(module, name)
+        self.start, self.iters, self.enabled = start, iters, enabled
+        self.calls, self.prof, self.t0, self.result, self.call_ms = 0, None, 0.0, None, []
+        self.check, self.checked, self.check_s = check, None, 0.0
+
+    def _edge(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        if self.calls == self.start:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif self.calls == self.start + self.iters and self.prof is not None:
+            wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.stop()
+            self.result = _device_time(torch, self.prof, self.iters, wall_ms / self.iters)
+            self.result["window_iterations"] = self.iters
+            self.prof = None
+
+    def __enter__(self):
+        def wrapped(*args, **kwargs):
+            if self.enabled and self.calls in (self.start, self.start + self.iters):
+                self._edge()
+            self.calls += 1
+            t0 = time.perf_counter()
+            out = self.inner(*args, **kwargs)
+            self.call_ms.append((time.perf_counter() - t0) * 1e3)
+            if self.check is not None and self.checked is None:
+                t0 = time.perf_counter()
+                self.checked = _uncounted(lambda: self.check(*args, **kwargs))
+                self.check_s = time.perf_counter() - t0
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+        if self.prof is not None:
+            self.prof.stop()
+            self.prof = None
+
+
+def _cli_run(args, device: str, window: "_TrainWindow") -> tuple:
+    """``cli.run(args)`` with every kernel count set to 0 just before and
+    read just after; with the wall time and the peak device memory.  The
+    window times each training call (no profiler) and runs its check, whose
+    seconds leave the wall time and the run's training seconds."""
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    counters = kernel_counters()
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with window:
+        out = run(args)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - window.check_s
+    out = dict(out, training_s=out["training_s"] - window.check_s, train_s=out["train_s"] - window.check_s)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    return out, wall, launches, peak
+
+
+def _profiled_run(module, name: str, args, total_steps: int, run_name: str) -> dict:
+    """The same configuration once more, ``total_steps`` long, with the
+    profiler over CLI_PROFILE_ITERS training calls after CLI_PROFILE_START:
+    device time by group and the device's idle share."""
+    from sheeprl_tpu_torch.cli import run
+
+    window = _TrainWindow(module, name, CLI_PROFILE_START, CLI_PROFILE_ITERS, True)
+    with window:
+        run(args + [f"algo.total_steps={total_steps}", f"run_name={run_name}", "algo.run_test=False"])
+    if window.result is None:
+        raise AssertionError(f"{run_name}: the run made fewer than {CLI_PROFILE_START + CLI_PROFILE_ITERS + 1} training calls")
+    return window.result
+
+
+def _loop_rates(out: dict, num_envs: int, window: "_TrainWindow") -> dict:
+    """Policy steps/s of the warm-up iterations (collect only) and of the
+    iterations from ``learning_starts`` on (collect and train), gradient
+    steps/s over those iterations and inside their training calls, and the
+    training calls' host ms (first, median, min, max)."""
+    import numpy as np
+
+    warm_iters = max(0, out["learning_starts"] - 1)
+    train_iters = out["iterations"] - warm_iters
+    calls = window.call_ms
+    return {
+        "train_call_ms": {"first": calls[0], "median": float(np.median(calls)), "min": min(calls), "max": max(calls),
+                          "calls": len(calls)} if calls else None,
+        "iterations": out["iterations"], "warmup_iterations": warm_iters, "training_iterations": train_iters,
+        "gradient_steps": out["gradient_steps"],
+        "policy_steps_per_s_collect": warm_iters * num_envs / out["warmup_s"] if out["warmup_s"] else None,
+        "policy_steps_per_s_with_training": train_iters * num_envs / out["training_s"] if out["training_s"] else None,
+        "gradient_steps_per_s": out["gradient_steps"] / out["training_s"] if out["training_s"] else None,
+        "gradient_steps_per_s_in_train_calls": out["gradient_steps"] / out["train_s"] if out["train_s"] else None,
+        "warmup_s": out["warmup_s"], "training_s": out["training_s"], "train_s": out["train_s"],
+    }
+
+
+def _require_launches(run: str, launches: dict, needed, device: str) -> None:
+    idle = [k for k in needed if launches[k] < 1]
+    if device != "cpu" and idle:
+        raise AssertionError(f"{run}: kernels its configuration reaches launched no time: {idle} ({launches})")
+
+
+def _require_checked(run: str, window: "_TrainWindow", needed) -> None:
+    """The run's cache draw was held against the plain versions, for every
+    kernel of ``needed`` that a draw, a write or an update makes."""
+    drawn = {"gather_windows", "gather_transitions", "sum_tree_sample", "sum_tree_write", "sum_tree_update"}
+    missing = sorted(set(needed) & drawn - set((window.checked or {}).get("kernels", ())))
+    if window.checked is None or missing:
+        raise AssertionError(f"{run}: no draw from the run's cache was held against the plain versions of {missing}")
+
+
+def _resume_one(args, out: dict, per_iter: int, root: str, name: str) -> dict:
+    """Resume a CLI run from its last checkpoint for exactly one iteration."""
+    from sheeprl_tpu_torch.cli import run
+
+    resumed = run(args + [f"algo.total_steps={out['policy_step'] + per_iter}", f"run_name={name}",
+                          f"checkpoint.resume_from={out['checkpoint']}"])
+    if resumed["iterations"] != 1 or resumed["policy_step"] != out["policy_step"] + per_iter \
+            or not os.path.exists(resumed["checkpoint"] or "") or resumed["test_reward"] is None:
+        raise AssertionError(f"{name}: the resume did not run one more iteration to a checkpoint and a test: {resumed}")
+    return {"iterations": resumed["iterations"], "policy_steps": resumed["policy_step"],
+            "test_reward": resumed["test_reward"], "checkpoint": os.path.relpath(resumed["checkpoint"], root)}
+
+
+def dv3_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> dict:
+    """The checkpoint's player on ``device`` against the same player on the
+    CPU (plain versions): the same GridWorld observations (a CPU rollout of
+    4 envs) and the same Gumbel noise for 16 steps; the recurrent
+    states within STATE_TOL at every step, the greedy actions identical."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_player
+    from sheeprl_tpu_torch.envs.device import DeviceVectorEnv
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+    from sheeprl_tpu_torch.utils.convert import load_flax_params
+    from sheeprl_tpu_torch.utils.env import make_device_env_from_cfg
+
+    state = load_checkpoint(ckpt_path, select=("world_model", "actor"))
+    env = make_device_env_from_cfg(cfg)
+    n = 4
+    actions_dim = (env.action_space.n,)
+    wm_cfg = cfg.algo.world_model
+    s, d = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    players = {}
+    for dev in (device, "cpu"):
+        player = build_player(MeshRuntime(device=dev, seed=0).launch(), actions_dim, False, cfg, env.observation_space)
+        players[dev] = load_flax_params(player, state)
+    vec = DeviceVectorEnv(env, n, device="cpu", seed=3)
+    obs = vec.reset(seed=3)[0]
+    gen = torch.Generator().manual_seed(4)
+    runs = {dev: {} for dev in players}
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(steps):
+            noise = -torch.log(-torch.log(torch.rand((1, n, s, d), generator=gen).clamp_min(1e-30)))
+            acts = {}
+            for dev, player in players.items():
+                st = runs[dev]
+                rssm = player.world_model.rssm
+                if not st:
+                    rec, stoch = rssm.get_initial_states((1, n))
+                    st.update(rec=rec, stoch=stoch.reshape(1, n, -1), act=torch.zeros(1, n, sum(actions_dim), device=dev))
+                o = {"state": torch.from_numpy(obs["state"]).to(dev).reshape(1, n, -1)}
+                emb = player.world_model.encoder(o)
+                st["rec"] = rssm.recurrent_step(torch.cat([st["stoch"], st["act"]], -1), st["rec"])
+                _, stoch = rssm._representation(emb, st["rec"], noise=noise.to(dev))
+                st["stoch"] = stoch.reshape(1, n, s * d)
+                heads, _ = player.actor(torch.cat([st["stoch"], st["rec"]], -1), True)
+                st["act"] = torch.cat(heads, -1)
+                acts[dev] = st["act"].argmax(-1).cpu()
+            if not torch.equal(acts[device], acts["cpu"]):
+                raise AssertionError(f"step {t}: greedy actions differ between {device} and the plain CPU player")
+            err = float((runs[device]["rec"].cpu() - runs["cpu"]["rec"]).abs().max())
+            worst = max(worst, err)
+            if not np.isfinite(err) or err > STATE_TOL:
+                raise AssertionError(f"step {t}: recurrent states differ by {err} > {STATE_TOL}")
+            obs = vec.step(acts["cpu"].numpy().reshape(n))[0]
+    return {"steps": steps, "envs": n, "max_abs_state_err": worst, "tol": STATE_TOL, "actions": "identical"}
+
+
+def run_dv3_cli(device: str, *, overrides=(), learning_starts: int = DV3_CLI_LEARNING_STARTS,
+                train_iters: int = DV3_CLI_TRAIN_ITERS, profile: bool = True) -> dict:
+    """DreamerV3 through ``sheeprl_tpu_torch.cli.run`` on ``device``: the two
+    runs of DV3_CLI_RUNS (``learning_starts`` warm-up steps, then about
+    ``train_iters`` training iterations), each with its loop rates, a
+    profiled window, peak memory and its kernels' launches; run (a) resumed
+    for one iteration and its checkpoint's player held against the plain CPU
+    player."""
+    import tempfile
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dv3_cli_") as root:
+        for name, extra in DV3_CLI_RUNS.items():
+            args = [*DV3_CLI_EXP, *extra, f"fabric.accelerator={accel}", f"root_dir={root}", f"run_name=dv3_{name}",
+                    f"algo.learning_starts={learning_starts}", *overrides]
+            cfg = compose(overrides=args)
+            n = int(cfg.env.num_envs)
+            total = learning_starts + train_iters * n
+            window = _TrainWindow(dv3, "train_steps", 0, 0, False, check=_dv3_draw_check)
+            res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={total}"], device, window)
+            if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
+                raise AssertionError(f"dv3 {name}: no test reward or no final checkpoint: {res}")
+            _require_launches(f"dv3 {name}", launches, DV3_CLI_KERNELS[name], device)
+            _require_checked(f"dv3 {name}", window, DV3_CLI_KERNELS[name])
+            row = {"env": cfg.env.id, "num_envs": n, "wall_s": wall, **_loop_rates(res, n, window), "peak_memory_bytes": peak,
+                   "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+                   "test_reward": res["test_reward"]}
+            if profile and device != "cpu":
+                steps = learning_starts + (CLI_PROFILE_START + CLI_PROFILE_ITERS + 3) * n
+                row["profile"] = _profiled_run(dv3, "train_steps", args, steps, f"dv3_{name}_profiled")
+            if name == "gridworld":
+                row["resumed"] = _resume_one(args, res, n, root, f"dv3_{name}_resumed")
+                row["player_vs_plain"] = dv3_player_vs_plain(cfg, res["checkpoint"], device)
+            out[name] = row
+    return out
+
+
+def run_sac_cli(device: str, *, overrides=(), dispatches: int = SAC_CLI_DISPATCHES, profile: bool = True) -> dict:
+    """SAC on Pendulum through ``sheeprl_tpu_torch.cli.run`` on ``device``:
+    about ``dispatches`` dispatches of ``algo.dispatch_batch`` gradient steps
+    after the warm-up, the loop rates, ms a dispatch, a profiled window of
+    dispatches, peak memory and the launches of #4-#7; then a resume for one
+    iteration."""
+    import tempfile
+
+    from sheeprl_tpu_torch.algos.sac import sac as sac_mod
+    from sheeprl_tpu_torch.config import compose
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    with tempfile.TemporaryDirectory(prefix="sac_cli_") as root:
+        args = [*SAC_CLI_EXP, f"fabric.accelerator={accel}", f"root_dir={root}", "run_name=sac_pendulum", *overrides]
+        cfg = compose(overrides=args)
+        n = int(cfg.env.num_envs)
+        per_dispatch_iters = max(1, int(cfg.algo.dispatch_batch) // n)
+        warm = int(cfg.algo.learning_starts) // n
+        total = (warm + dispatches * per_dispatch_iters) * n
+        window = _TrainWindow(sac_mod, "train_dispatch", 0, 0, False, check=_sac_draw_check)
+        res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={total}"], device, window)
+        if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
+            raise AssertionError(f"sac: no test reward or no final checkpoint: {res}")
+        _require_launches("sac", launches, SAC_CLI_KERNELS, device)
+        _require_checked("sac", window, SAC_CLI_KERNELS)
+        row = {"env": cfg.env.id, "num_envs": n, "dispatch_batch": int(cfg.algo.dispatch_batch), "wall_s": wall,
+               **_loop_rates(res, n, window), "dispatches": res["dispatches"],
+               "ms_per_dispatch": 1e3 * res["train_s"] / max(1, res["dispatches"]), "peak_memory_bytes": peak,
+               "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+               "test_reward": res["test_reward"]}
+        if profile and device != "cpu":
+            steps = (warm + (CLI_PROFILE_START + CLI_PROFILE_ITERS + 2) * per_dispatch_iters) * n
+            row["profile"] = _profiled_run(sac_mod, "train_dispatch", args, steps, "sac_pendulum_profiled")
+        row["resumed"] = _resume_one(args, res, n, root, "sac_pendulum_resumed")
+    return row
 
 
 def mma_sync_peak(torch) -> dict:
@@ -2972,7 +3429,21 @@ def main() -> int:
     phase("ppo_cli", **run_ppo_cli("cuda"))
     torch.cuda.empty_cache()
 
-    # 10. purity
+    # 10. DreamerV3 and SAC through the CLI on the device envs: the loops
+    # reach the kernels (launches counted over each run)
+    dv3_cli = run_dv3_cli("cuda")
+    for label, row in dv3_cli.items():
+        phase("dv3_cli", run=label, card=smi, **row)
+    torch.cuda.empty_cache()
+    sac_cli = run_sac_cli("cuda")
+    phase("sac_cli", card=smi, **sac_cli)
+    torch.cuda.empty_cache()
+
+    def cli_launches(name: str) -> dict:
+        dv3 = sum(row["launches"].get(name, 0) for row in dv3_cli.values())
+        return {k: v for k, v in (("dv3_cli", dv3), ("sac_cli", sac_cli["launches"].get(name, 0))) if v}
+
+    # 11. purity
     bad = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu", "gymnasium")
@@ -2989,9 +3460,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/gru_cell.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:134",
-            "launches": serve_launches + train["launches"]["gru_cell"] + dec["launches"]["gru_cell"],
+            "launches": serve_launches + train["launches"]["gru_cell"] + dec["launches"]["gru_cell"]
+            + sum(cli_launches("gru_cell").values()),
             "launches_by_path": {"serving": serve_launches, "training": train["launches"]["gru_cell"],
-                                 "training_decoupled": dec["launches"]["gru_cell"]},
+                                 "training_decoupled": dec["launches"]["gru_cell"], **cli_launches("gru_cell")},
             "max_abs_err": max(r["max_abs_err"] for r in gru_rows if r["wdtype"] == "float32"),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -3012,18 +3484,21 @@ def main() -> int:
                       {"training": train["launches"]["gather_windows"],
                        "training_per": per_train["launches"]["gather_windows"],
                        "training_decoupled": dec["launches"]["gather_windows"],
-                       "sac_sharded": sharded["state_check"]["uniform_window_gather_launches"]},
+                       "sac_sharded": sharded["state_check"]["uniform_window_gather_launches"],
+                       **cli_launches("gather_windows")},
                       gather_row, f"{gather_row['rows']} rows x {gather_row['row_bytes']} B",
                       **{k: gather_row[k] for k in ("host_us", "launch_floor_ms", "device_ops", "plain_device_ms",
                                                     "library_device_ms")}),
         _kernel_entry("gather_transitions", "sheeprl_tpu_torch/csrc/gather.cu",
                       "sheeprl_tpu/ops/pallas_gather.py:127",
                       {"sac": sac["launches"]["gather_transitions"],
-                       "sac_sharded": sharded["state_check"]["uniform_gather_launches"]},
+                       "sac_sharded": sharded["state_check"]["uniform_gather_launches"],
+                       **cli_launches("gather_transitions")},
                       transitions_row, f"{transitions_row['rows']} rows x {transitions_row['row_bytes']} B",
                       **{k: transitions_row[k] for k in ("host_us", "launch_floor_ms", "device_ops", "library_device_ms")}),
         _kernel_entry("sum_tree_sample", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:171",
-                      {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"]},
+                      {"sac": sac["launches"]["sum_tree_sample"], "training_per": per_train["launches"]["sum_tree_sample"],
+                       **cli_launches("sum_tree_sample")},
                       tree_rows["sample_e0"], f"{TREE_DRAWS} draws, {TREE_LEAVES} leaves, no exclusions",
                       **{k: tree_rows["sample_e0"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
                       ms_e63=tree_rows["sample_e63"]["ms"], bound_ms_e63=tree_rows["sample_e63"]["bound_ms"],
@@ -3033,23 +3508,26 @@ def main() -> int:
                       bound_ms_e2016=tree_rows["sample_e2016"]["bound_ms"],
                       flips_integer_e2016=tree_rows["sample_e2016"]["checks"]["integer"]["flips"]),
         _kernel_entry("sum_tree_write", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:252",
-                      {"sac": sac["launches"]["sum_tree_write"], "training_per": per_train["launches"]["sum_tree_write"]},
+                      {"sac": sac["launches"]["sum_tree_write"], "training_per": per_train["launches"]["sum_tree_write"],
+                       **cli_launches("sum_tree_write")},
                       tree_rows["sum_tree_write"], "256 lanes (one SAC flush), 2^20-leaf tree",
                       **{k: tree_rows["sum_tree_write"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
                       cases=_cases(tree_rows["write_cases"], "write")),
         _kernel_entry("sum_tree_update", "sheeprl_tpu_torch/csrc/sum_tree.cu", "sheeprl_tpu/ops/pallas_per.py:275",
-                      {"sac": sac["launches"]["sum_tree_update"]},
+                      {"sac": sac["launches"]["sum_tree_update"], **cli_launches("sum_tree_update")},
                       tree_rows["sum_tree_update"], f"{TREE_DRAWS} lanes, 2^20-leaf tree",
                       **{k: tree_rows["sum_tree_update"][k] for k in ("host_us", "launch_floor_ms", "device_ops")},
                       cases=_cases(tree_rows["write_cases"], "update")),
         _kernel_entry("gru_sequence", "sheeprl_tpu_torch/csrc/seq_gru.cu", "sheeprl_tpu/ops/seq_gru.py:126",
-                      {"training_decoupled": dec["launches"]["gru_sequence"]}, seq_row, seq_row["shape"],
+                      {"training_decoupled": dec["launches"]["gru_sequence"], **cli_launches("gru_sequence")},
+                      seq_row, seq_row["shape"],
                       **{k: seq_row[k] for k in ("route", "route_by_shape", "max_abs_err_f64_by_shape", "f32_tol",
                                                  "device_ops", "host_us", "per_step_us",
                                                  "fwd_bwd_ms", "plain_fwd_bwd_ms", "bound_cuda_cores_ms",
                                                  "device_ms_by_shape")}),
         _kernel_entry("gru_input_product", "sheeprl_tpu_torch/csrc/gru_cell.cu", "sheeprl_tpu/ops/seq_gru.py:126",
-                      {"training_decoupled": dec["launches"]["gru_input_product"]}, seq_row["input_product"],
+                      {"training_decoupled": dec["launches"]["gru_input_product"], **cli_launches("gru_input_product")},
+                      seq_row["input_product"],
                       seq_row["input_product"]["shape"],
                       **{k: seq_row["input_product"][k] for k in ("device_ops", "host_us", "bound_cuda_cores_ms",
                                                                   "max_rel_err", "rtol")}),

@@ -787,6 +787,10 @@ class PlayerDV3:
         self.device = next(agent.parameters()).device
         self.init_states()
 
+    @property
+    def is_continuous(self) -> bool:
+        return bool(self.agent.actor.is_continuous)
+
     @torch.no_grad()
     def init_states(self, reset_envs: Optional[Sequence[int]] = None) -> None:
         rssm = self.agent.world_model.rssm
@@ -808,7 +812,12 @@ class PlayerDV3:
         obs: Dict[str, torch.Tensor],
         greedy: bool = False,
         generator: Optional[torch.Generator] = None,
+        mask: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, ...]:
+        """One step of every env's state and its actions.  ``mask`` is the
+        action-mask observations the loops pass; the player does not apply
+        them, as the JAX package's ``PlayerDV3`` does not (MineDojo masks:
+        ROADMAP A4)."""
         wm, actor = self.agent.world_model, self.agent.actor
         embedded = wm.encoder(obs)
         self.recurrent_state = wm.rssm.recurrent_step(

@@ -15,8 +15,18 @@ Parameters and optimizer states are updated in place.
 :func:`train_steps` is the training block of ``main`` (:913-949): for each
 gradient step, the target critic's EMA (tau = 1 on the very first), then
 the step, on batches from :func:`~sheeprl_tpu_torch.data.device_buffer.sequence_batches`.
-The env loop that calls it, checkpoints and the training-health sentinel
-(``guard_update``, off by default) wait for later slices.
+
+:func:`main` is the env loop (``dreamer_v3.py:634-1049``) on the port's
+stepping device vector env: random warm-up actions until
+``learning_starts``, then the player's; every step's row and, where an
+episode ended, a reset row into an ``EnvIndependentReplayBuffer`` of
+``SequentialReplayBuffer``s and its device cache; ``Ratio``-granted
+gradient steps through :func:`train_steps`; logging, checkpoints (the
+replay buffer included, in the JAX package's layout) and the closing test
+episode.  Raise, each naming its ROADMAP item: ``fabric.devices > 1``
+(A5), the training-health sentinel (A2; ``guard_update`` is not ported),
+the observability knobs (A7), ``buffer.memmap`` (A2) and ``bf16-true``
+(A2).
 
 Randomness: a step draws every sample's noise up front (:func:`draw_noise`)
 from a ``torch.Generator``, or takes it pre-drawn.  The noise layout is
@@ -49,11 +59,12 @@ from sheeprl_tpu_torch.utils.distribution import (
     gumbel_noise,
     normal_noise,
 )
+from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import ema_
 from sheeprl_tpu_torch.utils.utils import grads_or_zeros as _grads
 from sheeprl_tpu_torch.utils.utils import trainable_params as _trainable
 
-__all__ = ["TrainState", "draw_noise", "ema_", "make_train_fn", "make_train_state", "train_steps"]
+__all__ = ["TrainState", "draw_noise", "ema_", "main", "make_train_fn", "make_train_state", "train_steps"]
 
 
 def draw_noise(
@@ -321,3 +332,317 @@ def train_steps(
             state.gradient_steps += 1
             out.append(state.metrics)
     return out
+
+
+@register_algorithm()
+def main(runtime, cfg):
+    """The DreamerV3 env loop (module docstring).  Returns the run's summary:
+    log dir, last checkpoint, policy and gradient steps, iterations, test
+    reward, and the seconds spent in the warm-up iterations, in the
+    iterations from ``learning_starts`` on and in their gradient steps."""
+    import time
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
+    from sheeprl_tpu_torch.config import instantiate
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+    from sheeprl_tpu_torch.data.device_buffer import maybe_create_for
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.resilience.manager import CheckpointManager, restore_buffer
+    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+    from sheeprl_tpu_torch.utils.convert import (
+        adam_state_from_tree,
+        adam_state_to_tree,
+        load_flax_params,
+        moments_to_torch,
+        torch_to_flax,
+    )
+    from sheeprl_tpu_torch.utils.env import make_train_envs
+    from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+    from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
+    from sheeprl_tpu_torch.utils.timer import timer
+    from sheeprl_tpu_torch.utils.utils import (
+        MetricFetchGate,
+        Ratio,
+        check_loop_scope,
+        fetch_actions,
+        fetch_metrics,
+        save_configs,
+    )
+
+    check_loop_scope(runtime, cfg, "DreamerV3", off_policy=True)
+    world_size = runtime.world_size
+    runtime.seed_everything(cfg.seed)
+    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
+
+    cfg.env.frame_stack = -1
+    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
+        raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
+
+    logger = get_logger(runtime, cfg)
+    log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
+    runtime.print(f"Log dir: {log_dir}")
+    if logger:
+        logger.log_hyperparams(cfg)
+
+    total_envs = cfg.env.num_envs * world_size
+    envs = make_train_envs(cfg, runtime, wrapper_chain=True)
+    observation_space = envs.single_observation_space
+    actions_dim, is_continuous = spaces.action_space_dims(envs.single_action_space)
+    clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
+    if not isinstance(observation_space, spaces.Dict):
+        raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
+
+    if (
+        len(set(cfg.algo.cnn_keys.encoder).intersection(set(cfg.algo.cnn_keys.decoder))) == 0
+        and len(set(cfg.algo.mlp_keys.encoder).intersection(set(cfg.algo.mlp_keys.decoder))) == 0
+    ):
+        raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
+    if len(set(cfg.algo.cnn_keys.decoder) - set(cfg.algo.cnn_keys.encoder)) > 0:
+        raise RuntimeError("The CNN keys of the decoder must be contained in the encoder ones")
+    if len(set(cfg.algo.mlp_keys.decoder) - set(cfg.algo.mlp_keys.encoder)) > 0:
+        raise RuntimeError("The MLP keys of the decoder must be contained in the encoder ones")
+    if cfg.metric.log_level > 0:
+        runtime.print("Encoder CNN keys:", cfg.algo.cnn_keys.encoder)
+        runtime.print("Encoder MLP keys:", cfg.algo.mlp_keys.encoder)
+        runtime.print("Decoder CNN keys:", cfg.algo.cnn_keys.decoder)
+        runtime.print("Decoder MLP keys:", cfg.algo.mlp_keys.decoder)
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
+
+    agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space)
+    train_state = make_train_state(runtime, agent, cfg, is_continuous, actions_dim)
+    groups = {"world_model": agent.world_model, "actor": agent.actor, "critic": agent.critic}
+    if state is not None:
+        load_flax_params(agent, {k: state[k] for k in ("world_model", "actor", "critic", "target_critic")})
+        train_state.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in groups.items()}
+        train_state.moments = moments_to_torch(state["moments"], runtime.device)
+    wm_cfg = cfg.algo.world_model
+    player = PlayerDV3(
+        agent.player(),
+        actions_dim,
+        total_envs,
+        wm_cfg.stochastic_size,
+        wm_cfg.recurrent_model.recurrent_state_size,
+        discrete_size=wm_cfg.discrete_size,
+        decoupled_rssm=bool(wm_cfg.decoupled_rssm),
+    )
+    save_configs(cfg, log_dir)
+
+    aggregator = None if MetricAggregator.disabled else instantiate(dict(cfg.metric.aggregator))
+
+    buffer_size = cfg.buffer.size // total_envs if not cfg.dry_run else 2
+    rb = EnvIndependentReplayBuffer(
+        max(buffer_size, 2), n_envs=total_envs, memmap=cfg.buffer.memmap, buffer_cls=SequentialReplayBuffer
+    )
+    if state and cfg.buffer.checkpoint:
+        rb = restore_buffer(state["rb"])
+    device_cache = maybe_create_for(cfg, runtime, rb, state if state and cfg.buffer.checkpoint else None)
+
+    train_step = 0
+    last_train = 0
+    start_iter = (state["iter_num"] // world_size) + 1 if state else 1
+    policy_step = state["iter_num"] * cfg.env.num_envs if state else 0
+    last_log = state["last_log"] if state else 0
+    last_checkpoint = state["last_checkpoint"] if state else 0
+    policy_steps_per_iter = int(total_envs)
+    total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
+    learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
+    prefill_steps = learning_starts - int(learning_starts > 0)
+    if state:
+        cfg.algo.per_rank_batch_size = state["batch_size"] // world_size
+        learning_starts += start_iter
+        prefill_steps += start_iter
+
+    ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    if state:
+        ratio.load_state_dict(state["ratio"])
+
+    ckpt_mgr = CheckpointManager(runtime, cfg, log_dir, last_checkpoint=last_checkpoint)
+
+    step_data: Dict[str, np.ndarray] = {}
+    obs = envs.reset(seed=cfg.seed)[0]
+    for k in obs_keys:
+        step_data[k] = obs[k][np.newaxis]
+    step_data["rewards"] = np.zeros((1, total_envs, 1))
+    step_data["truncated"] = np.zeros((1, total_envs, 1))
+    step_data["terminated"] = np.zeros((1, total_envs, 1))
+    step_data["is_first"] = np.ones_like(step_data["terminated"])
+    player.init_states()
+
+    metric_fetch_gate = MetricFetchGate(cfg.metric.get("fetch_every", 1))
+    heartbeat_t = time.perf_counter()
+    seconds = {"warmup_s": 0.0, "training_s": 0.0, "train_s": 0.0}
+    last_path = None
+    for iter_num in range(start_iter, total_iters + 1):
+        iter_t0 = time.perf_counter()
+        policy_step += policy_steps_per_iter
+
+        with timer("Time/env_interaction_time", SumMetric, sync_on_compute=False):
+            if iter_num <= learning_starts and cfg.checkpoint.resume_from is None:
+                real_actions = actions = envs.sample_actions().cpu().numpy()
+                if not is_continuous:
+                    actions = np.concatenate(
+                        [
+                            np.eye(act_dim, dtype=np.float32)[act]
+                            for act, act_dim in zip(actions.reshape(len(actions_dim), -1), actions_dim)
+                        ],
+                        axis=-1,
+                    )
+            else:
+                prepared = prepare_obs(
+                    {k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=total_envs, device=runtime.device
+                )
+                mask = {k: v for k, v in prepared.items() if k.startswith("mask")} or None
+                action_list = player.get_actions(prepared, False, runtime.generator, mask)
+                actions, real_actions = fetch_actions(action_list, actions_dim, is_continuous, total_envs)
+
+            step_data["actions"] = np.asarray(actions).reshape(1, total_envs, -1)
+            rb.add(step_data, validate_args=cfg.buffer.validate_args)
+            if device_cache is not None:
+                device_cache.add(step_data)
+
+            next_obs, rewards, terminated, truncated, infos = envs.step(
+                np.asarray(real_actions).reshape(total_envs, *envs.single_action_space.shape)
+            )
+            dones = np.logical_or(terminated, truncated).astype(np.uint8)
+
+        step_data["is_first"] = np.zeros_like(step_data["terminated"])
+
+        if cfg.metric.log_level > 0 and "final_info" in infos:
+            ep = infos["final_info"]["episode"]
+            for i in np.nonzero(infos["final_info"]["_episode"])[0]:
+                if aggregator and not aggregator.disabled:
+                    aggregator.update("Rewards/rew_avg", float(ep["r"][i]))
+                    aggregator.update("Game/ep_len_avg", float(ep["l"][i]))
+                runtime.print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={float(ep['r'][i])}")
+
+        real_next_obs = {k: np.array(v) for k, v in next_obs.items()}
+        if "final_obs" in infos:
+            for idx in np.nonzero(infos["_final_obs"])[0]:
+                for k, v in infos["final_obs"][idx].items():
+                    real_next_obs[k][idx] = v
+
+        for k in obs_keys:
+            step_data[k] = next_obs[k][np.newaxis]
+        obs = next_obs
+
+        rewards = rewards.reshape((1, total_envs, -1))
+        step_data["terminated"] = terminated.reshape((1, total_envs, -1)).astype(np.float32)
+        step_data["truncated"] = truncated.reshape((1, total_envs, -1)).astype(np.float32)
+        step_data["rewards"] = clip_rewards_fn(rewards)
+
+        dones_idxes = dones.nonzero()[0].tolist()
+        reset_envs = len(dones_idxes)
+        if reset_envs > 0:
+            reset_data = {}
+            for k in obs_keys:
+                reset_data[k] = (real_next_obs[k][dones_idxes])[np.newaxis]
+            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
+            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
+            reset_data["actions"] = np.zeros((1, reset_envs, int(np.sum(actions_dim))))
+            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
+            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            if device_cache is not None:
+                device_cache.add(reset_data, dones_idxes)
+
+            step_data["rewards"][:, dones_idxes] = np.zeros_like(reset_data["rewards"])
+            step_data["terminated"][:, dones_idxes] = np.zeros_like(step_data["terminated"][:, dones_idxes])
+            step_data["truncated"][:, dones_idxes] = np.zeros_like(step_data["truncated"][:, dones_idxes])
+            step_data["is_first"][:, dones_idxes] = np.ones_like(step_data["is_first"][:, dones_idxes])
+            player.init_states(dones_idxes)
+
+        # ------------------------------------------------------ train
+        if iter_num >= learning_starts:
+            ratio_steps = policy_step - prefill_steps * policy_steps_per_iter
+            per_rank_gradient_steps = ratio(ratio_steps / world_size)
+            if per_rank_gradient_steps > 0:
+                train_t0 = time.perf_counter()
+                with timer("Time/train_time", SumMetric, sync_on_compute=cfg.metric.sync_on_compute):
+                    train_steps(train_state, rb, device_cache, cfg, per_rank_gradient_steps, runtime.generator)
+                seconds["train_s"] += time.perf_counter() - train_t0
+                train_step += world_size
+                if aggregator and not aggregator.disabled and metric_fetch_gate():
+                    for k, v in fetch_metrics(train_state.metrics).items():
+                        aggregator.update(k, v)
+
+        # ------------------------------------------------------ logging
+        if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
+            timer_metrics = {}
+            if logger:
+                if aggregator and not aggregator.disabled:
+                    logger.log_metrics(aggregator.compute(), policy_step)
+                    aggregator.reset()
+                logger.log_metrics(
+                    {"Params/replay_ratio": train_state.gradient_steps * world_size / policy_step}, policy_step
+                )
+                if not timer.disabled:
+                    timer_metrics = timer.compute()
+                    if timer_metrics.get("Time/train_time", 0) > 0:
+                        logger.log_metrics(
+                            {"Time/sps_train": (train_step - last_train) / timer_metrics["Time/train_time"]}, policy_step
+                        )
+                    if timer_metrics.get("Time/env_interaction_time", 0) > 0:
+                        logger.log_metrics(
+                            {
+                                "Time/sps_env_interaction": ((policy_step - last_log) / world_size * cfg.env.action_repeat)
+                                / timer_metrics["Time/env_interaction_time"]
+                            },
+                            policy_step,
+                        )
+                    timer.reset()
+            heartbeat_now = time.perf_counter()
+            split = ""
+            if logger and not timer.disabled:
+                split = (
+                    f", env_s={timer_metrics.get('Time/env_interaction_time', 0):.1f}"
+                    f", train_s={timer_metrics.get('Time/train_time', 0):.1f}"
+                )
+            runtime.print(
+                f"Rank-0: heartbeat policy_step={policy_step}, "
+                f"sps={(policy_step - last_log) / max(heartbeat_now - heartbeat_t, 1e-9):.2f}, "
+                f"gradient_steps={train_state.gradient_steps}" + split
+            )
+            heartbeat_t = heartbeat_now
+            last_log = policy_step
+            last_train = train_step
+
+        # ------------------------------------------------------ checkpoint
+        def _ckpt_state():
+            params = torch_to_flax(agent)
+            ckpt_state = {
+                "world_model": params["world_model"],
+                "actor": params["actor"],
+                "critic": params["critic"],
+                "target_critic": params["target_critic"],
+                "opt_states": {g: adam_state_to_tree(train_state.opt_states[g], m, g) for g, m in groups.items()},
+                "moments": dict(train_state.moments),
+                "ratio": ratio.state_dict(),
+                "iter_num": iter_num * world_size,
+                "batch_size": cfg.algo.per_rank_batch_size * world_size,
+                "last_log": last_log,
+                "last_checkpoint": ckpt_mgr.last_checkpoint,
+            }
+            if cfg.buffer.checkpoint:
+                ckpt_state["rb"] = rb
+            if device_cache is not None and device_cache.prioritized:
+                ckpt_state["replay_priority"] = device_cache.priority_state()
+            return ckpt_state
+
+        path = ckpt_mgr.maybe_checkpoint(policy_step=policy_step, is_last=iter_num == total_iters, state_fn=_ckpt_state)
+        last_path = path or last_path
+        seconds["warmup_s" if iter_num < learning_starts else "training_s"] += time.perf_counter() - iter_t0
+
+    ckpt_mgr.close()
+    envs.close()
+    test_rew = None
+    if cfg.algo.run_test:
+        test_rew = test(player, runtime, cfg, log_dir, greedy=False)
+        if logger:
+            logger.log_metrics({"Test/cumulative_reward": test_rew}, policy_step)
+    if logger:
+        logger.finalize()
+    return {"log_dir": log_dir, "checkpoint": last_path, "policy_step": policy_step, "test_reward": test_rew,
+            "iterations": total_iters - start_iter + 1, "gradient_steps": train_state.gradient_steps,
+            "learning_starts": learning_starts, **seconds}

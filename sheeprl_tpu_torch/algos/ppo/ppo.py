@@ -38,30 +38,16 @@ from sheeprl_tpu_torch.algos.ppo.vtrace import vtrace
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.optim import build_optimizer, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, trainable_params
+from sheeprl_tpu_torch.utils.utils import check_loop_scope, fetch_metrics, gae, normalize_tensor, trainable_params
 
-__all__ = ["build_ppo_optimizer", "check_port_scope", "fetch_metrics", "main", "make_update_fn"]
-
-# metric.* knobs of the JAX package's observability layer (ROADMAP A7)
-_OBSERVABILITY = ("profile", "profile_every_n", "telemetry", "telemetry_tb_mirror", "tracing", "live", "ledger")
-
-
-def _on(value: Any) -> bool:
-    return value not in (None, False, 0, "", "off", "false", "False")
-
+__all__ = ["build_ppo_optimizer", "check_port_scope", "main", "make_update_fn"]
 
 def check_port_scope(runtime, cfg: Dict[str, Any], algo: str) -> None:
     """Raise for what the on-policy loops of the port do not run yet.  The
     collect/train overlap is off, with a notice where the config turns it
     on, as the JAX package does for ``env_backend=jax`` (``ppo.py:533``):
     the port has no collector thread (ROADMAP A2 brings one for host envs)."""
-    if runtime.world_size > 1:
-        raise NotImplementedError(f"{algo} with fabric.devices > 1 (the DDP core over shards) waits for ROADMAP A5")
-    if (cfg.algo.get("sentinel") or {}).get("enabled", False):
-        raise NotImplementedError("algo.sentinel.enabled (the training-health sentinel) waits for ROADMAP A2")
-    on = [f"metric.{k}" for k in _OBSERVABILITY if _on(cfg.metric.get(k))]
-    if on:
-        raise NotImplementedError(f"{', '.join(on)}: the port's observability layer waits for ROADMAP A7")
+    check_loop_scope(runtime, cfg, algo)
     overlap = cfg.algo.get("overlap_collect", False)
     if overlap is True or str(overlap).strip().lower() == "auto":
         print(
@@ -89,14 +75,6 @@ def epoch_permutations(n_total: int, n_used: int, epochs: int, generator: Option
     if n_used > n_total:
         perms = perms.repeat(1, -(-n_used // n_total))[:, :n_used]
     return perms
-
-
-def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Scalar device metrics to host floats in one copy."""
-    if not metrics:
-        return {}
-    values = torch.stack([v.detach().reshape(()).float() for v in metrics.values()]).tolist()
-    return dict(zip(metrics, values))
 
 
 def make_update_fn(runtime, agent, tx, cfg: Dict[str, Any], obs_keys: Sequence[str]):
@@ -182,15 +160,6 @@ def make_update_fn(runtime, agent, tx, cfg: Dict[str, Any], obs_keys: Sequence[s
     return update
 
 
-def _action_space_dims(space):
-    """(actions_dim, is_continuous) of a port action space."""
-    if isinstance(space, spaces.Box):
-        return tuple(space.shape), True
-    if isinstance(space, spaces.MultiDiscrete):
-        return tuple(space.nvec.tolist()), False
-    return (space.n,), False
-
-
 def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kwargs) -> Dict[str, Any]:
     """The coupled on-policy loop that PPO and A2C share on the device
     backend; ``make_update(runtime, agent, tx, cfg, obs_keys)`` builds the
@@ -232,7 +201,7 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
     if cfg.metric.log_level > 0:
         runtime.print("Encoder CNN keys:", cnn_keys)
         runtime.print("Encoder MLP keys:", mlp_keys)
-    actions_dim, is_continuous = _action_space_dims(envs.single_action_space)
+    actions_dim, is_continuous = spaces.action_space_dims(envs.single_action_space)
 
     agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space, state["agent"] if state else None)
     tx = build_ppo_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, runtime.precision)

@@ -44,29 +44,17 @@ def test(
     seed: Optional[int] = None,
 ) -> float:
     """One episode of the agent, greedy by default, on the port's device
-    env, one env wide, on the runtime's device; its reset noise comes from
-    a generator seeded with ``seed`` (``cfg.seed`` by default).  The JAX
-    package's ``test`` steps a gymnasium env built by ``make_env``, for a
-    ``jax_*`` id the gym adapter over the same dynamics."""
-    from sheeprl_tpu_torch.envs.device import vector_reset
-    from sheeprl_tpu_torch.envs.device.collect import policy_env_step
-    from sheeprl_tpu_torch.utils.env import make_device_env_from_cfg
+    env, one env wide (``utils/env.py:run_test_episode``), its draws from
+    the runtime's generator."""
+    from sheeprl_tpu_torch.algos.ppo.agent import sample_actions
+    from sheeprl_tpu_torch.utils.env import run_test_episode
 
-    env = make_device_env_from_cfg(cfg)
-    device = runtime.device
-    seed = cfg.seed if seed is None else seed
-    generator = torch.Generator(device=device).manual_seed(int(seed))
-    limit = cfg.env.max_episode_steps if cfg.env.get("max_episode_steps") else env.max_episode_steps
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
-    keys = tuple(cnn_keys) + tuple(cfg.algo.mlp_keys.encoder)
-    vstate = vector_reset(env, 1, generator=generator, device=device)
-    cumulative_rew = 0.0
-    done = False
-    while not done:
-        obs = normalize_obs({k: vstate["obs"][k].float() for k in keys}, cnn_keys, keys)
-        vstate, out, _, _, _ = policy_env_step(player.agent, env, vstate, obs, limit, generator=generator, greedy=greedy)
-        reward, ended = torch.stack([out["reward"][0], out["done"][0].float()]).tolist()
-        cumulative_rew += reward
-        done = bool(ended) or bool(cfg.dry_run)
-    runtime.print("Test - Reward:", cumulative_rew)
-    return cumulative_rew
+    keys = cnn_keys + tuple(cfg.algo.mlp_keys.encoder)
+
+    def act(obs):
+        o = normalize_obs({k: torch.as_tensor(obs[k], device=runtime.device).float() for k in keys}, cnn_keys, keys)
+        flat, real, _, _ = sample_actions(player.agent, o, generator=runtime.generator, greedy=greedy)
+        return (flat if player.agent.is_continuous else real[..., 0]).cpu().numpy()
+
+    return run_test_episode(cfg, runtime, act, seed)

@@ -4,12 +4,12 @@
 - :mod:`.core`: the env protocol, ``tree_select``, ``vector_reset`` and
   ``vector_step`` (SAME_STEP auto-reset, truncation, episode totals);
 - :mod:`.classic`: CartPole and Pendulum;
+- :mod:`.gridworld`: the procedural maze;
 - :mod:`.vector`: :class:`DeviceVectorEnv`, N envs of one family as the
-  training loop sees them (spaces, count, time limit, device);
+  training loops see them, stepping behind the gymnasium vector API;
 - :mod:`.collect`: the fused on-policy collect.
 
-``jax_gridworld`` waits for ROADMAP A2 (with the DV3 loop); the gym
-adapter is not ported (the card's machine has no gymnasium).
+The gym adapter is not ported (the card's machine has no gymnasium).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict
 
 from sheeprl_tpu_torch.envs.device.classic import CartPole, Pendulum
 from sheeprl_tpu_torch.envs.device.core import DeviceEnv, tree_select, vector_reset, vector_step
+from sheeprl_tpu_torch.envs.device.gridworld import GridWorld
 from sheeprl_tpu_torch.envs.device.vector import DeviceVectorEnv
 
 __all__ = [
@@ -25,6 +26,7 @@ __all__ = [
     "CartPole",
     "DeviceEnv",
     "DeviceVectorEnv",
+    "GridWorld",
     "Pendulum",
     "is_device_env_id",
     "make_device_env",
@@ -37,9 +39,8 @@ __all__ = [
 DEVICE_ENV_REGISTRY: Dict[str, Callable[..., DeviceEnv]] = {
     "jax_cartpole": CartPole,
     "jax_pendulum": Pendulum,
+    "jax_gridworld": GridWorld,
 }
-#: ids of the JAX package's registry that the port has not ported yet
-WAITING = {"jax_gridworld": "ROADMAP A2 (GridWorld comes with the DV3 env loop)"}
 
 
 def is_device_env_id(env_id: Any) -> bool:
@@ -48,9 +49,7 @@ def is_device_env_id(env_id: Any) -> bool:
 
 def make_device_env(id: str, **kwargs: Any) -> DeviceEnv:
     """The env family registered under ``id``, built with ``kwargs``
-    (``randomize``, ``randomize_scale``, ``max_episode_steps``)."""
-    if id in WAITING:
-        raise NotImplementedError(f"env '{id}' is not ported yet: {WAITING[id]}")
+    (``randomize``, ``size``, ``max_episode_steps``, ...)."""
     if id not in DEVICE_ENV_REGISTRY:
         raise ValueError(f"Unknown device env id {id!r}; registered: {', '.join(sorted(DEVICE_ENV_REGISTRY))}")
     return DEVICE_ENV_REGISTRY[id](**kwargs)

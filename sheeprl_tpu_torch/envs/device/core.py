@@ -77,9 +77,11 @@ def vector_reset(
     generator: Optional[torch.Generator] = None,
     noise: Optional[State] = None,
     device=None,
+    return_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, Any]:
     """Reset ``num_envs`` envs: the vector state (the env state, the current
-    obs and the per-env episode accounting)."""
+    obs and the per-env episode accounting).  ``return_dtype`` is the dtype
+    that :func:`vector_step` sums rewards and episode returns in."""
     if noise is None:
         noise = env.reset_noise(num_envs, generator, device)
     state, obs = env.reset(noise)
@@ -88,7 +90,7 @@ def vector_reset(
         "env": state,
         "obs": obs,
         "t": torch.zeros(num_envs, dtype=torch.int32, device=dev),
-        "ep_return": torch.zeros(num_envs, dtype=torch.float32, device=dev),
+        "ep_return": torch.zeros(num_envs, dtype=return_dtype, device=dev),
         "ep_length": torch.zeros(num_envs, dtype=torch.int32, device=dev),
     }
 
@@ -101,6 +103,8 @@ def vector_step(
     *,
     reset_noise: Optional[State] = None,
     generator: Optional[torch.Generator] = None,
+    action_repeat: int = 1,
+    time_limit: Optional[int] = None,
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """One auto-resetting step of every env (gymnasium's SAME_STEP mode).
 
@@ -109,16 +113,43 @@ def vector_step(
     ``done``, ``final_obs`` (the obs before the reset) and ``ep_return`` /
     ``ep_length`` (the episode totals including this step; valid where
     done).  Every env draws a reset each step and the done ones take it,
-    as in the JAX package; ``reset_noise`` supplies that draw.
+    as in the JAX package; ``reset_noise`` supplies that draw.  Rewards and
+    returns are summed in the dtype of ``vstate["ep_return"]``.
+
+    ``max_episode_steps`` (else the family's) truncates an episode where it
+    has taken that many steps of the family and not terminated.
+    ``action_repeat > 1`` steps each env up to that many times with the
+    same action, summing the rewards and stopping an env where its episode
+    ends (``envs/wrappers.py:ActionRepeat``).  ``time_limit`` is gymnasium's
+    ``TimeLimit`` above the repeat: it counts the calls, and truncates where
+    it is reached, terminated or not.  These two are the steps of
+    ``make_env``'s wrapper chain over the gym adapter.
     """
     num_envs = vstate["t"].shape[0]
-    new_env, obs, reward, terminated, _info = env.step(vstate["env"], actions)
-    reward = reward.to(torch.float32).reshape(num_envs)
-    terminated = terminated.reshape(num_envs).to(torch.bool)
-
-    t = vstate["t"] + 1
+    acc = vstate["ep_return"].dtype
     limit = max_episode_steps if max_episode_steps is not None else env.max_episode_steps
-    truncated = (t >= int(limit)) & ~terminated if limit else torch.zeros_like(terminated)
+
+    def clipped(t, terminated):
+        return (t >= int(limit)) & ~terminated if limit else torch.zeros_like(terminated)
+
+    new_env, obs, reward, terminated, _info = env.step(vstate["env"], actions)
+    reward = reward.to(torch.float32).reshape(num_envs).to(acc)
+    terminated = terminated.reshape(num_envs).to(torch.bool)
+    t = vstate["t"] + 1
+    truncated = clipped(t, terminated)
+    for _ in range(int(action_repeat) - 1):
+        live = ~(terminated | truncated)
+        stepped, obs_i, reward_i, term_i, _info = env.step(new_env, actions)
+        new_env = tree_select(live, stepped, new_env)
+        obs = tree_select(live, obs_i, obs)
+        reward_i = reward_i.to(torch.float32).reshape(num_envs).to(acc)
+        reward = reward + torch.where(live, reward_i, torch.zeros_like(reward))
+        terminated = terminated | (live & term_i.reshape(num_envs).to(torch.bool))
+        t = t + live.to(t.dtype)
+        truncated = clipped(t, terminated)
+    ep_length = vstate["ep_length"] + 1
+    if time_limit:
+        truncated = truncated | (ep_length >= int(time_limit))
     done = terminated | truncated
 
     if reset_noise is None:
@@ -128,7 +159,6 @@ def vector_step(
     next_obs = tree_select(done, reset_obs, obs)
 
     ep_return = vstate["ep_return"] + reward
-    ep_length = vstate["ep_length"] + 1
     out = {
         "obs": next_obs,
         "reward": reward,

@@ -8,6 +8,12 @@ Counterpart of ``sheeprl_tpu/resilience/manager.py:CheckpointManager``:
   the agent's parameters are not finite (unless
   ``checkpoint.allow_nonfinite``), written as a ``sheeprl_tpu_ckpt_v1``
   file and the oldest files beyond ``checkpoint.keep_last`` removed;
+- a replay buffer under ``"rb"`` is written in the JAX package's layout
+  (``utils/callback.py:_materialize_rb``), its newest row of every env
+  marked truncated in the saved copy only (``_ckpt_rb``), so that a resumed
+  run never samples across the episode that was in flight;
+  :func:`restore_buffer` builds it back, and the JAX package's
+  ``restore_buffer`` reads it;
 - ``checkpoint.async_save`` writes synchronously: the background writer
   waits for ROADMAP A2.  ``checkpoint.sharded`` (ROADMAP A5) and
   ``checkpoint.device_digests`` (ROADMAP A6) raise.  The preemption
@@ -25,7 +31,7 @@ import torch
 
 from sheeprl_tpu_torch.utils.ckpt_format import CheckpointCorruptError, save_state, validate_checkpoint
 
-__all__ = ["CheckpointManager", "NonFiniteCheckpointError", "to_host"]
+__all__ = ["CheckpointManager", "NonFiniteCheckpointError", "materialize_rb", "restore_buffer", "to_host"]
 
 
 class NonFiniteCheckpointError(RuntimeError):
@@ -49,6 +55,76 @@ def to_host(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_host(v) for v in tree)
     return tree
+
+
+def _ckpt_rb(rb) -> list:
+    """Mark the newest row of every env truncated (``_ckpt_rb``); returns
+    what :func:`_restore_rb` puts back."""
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer
+
+    if isinstance(rb, ReplayBuffer):
+        if rb.empty or "truncated" not in rb.buffer:
+            return []
+        saved = np.copy(rb.buffer["truncated"][rb._pos - 1])
+        rb.buffer["truncated"][rb._pos - 1, :] = True
+        return [(rb, saved)]
+    if isinstance(rb, EnvIndependentReplayBuffer):
+        return [s for sub in rb.buffer for s in _ckpt_rb(sub)]
+    return []
+
+
+def _restore_rb(restore: list) -> None:
+    for rb, saved in restore:
+        rb.buffer["truncated"][rb._pos - 1] = saved
+
+
+def materialize_rb(rb) -> Dict[str, Any]:
+    """A copy of a replay buffer's contents in the JAX package's checkpoint
+    layout (``{"kind": "replay" | "env_independent", ...}``)."""
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer
+
+    if isinstance(rb, ReplayBuffer):
+        return {
+            "kind": "replay",
+            "cls": type(rb).__name__,
+            "buffer_size": rb.buffer_size,
+            "n_envs": rb.n_envs,
+            "obs_keys": rb._obs_keys,
+            "pos": rb._pos,
+            "full": rb._full,
+            "data": {k: np.array(v) for k, v in rb.buffer.items()},
+        }
+    if isinstance(rb, EnvIndependentReplayBuffer):
+        return {
+            "kind": "env_independent",
+            "buffer_size": rb.buffer_size,
+            "n_envs": rb.n_envs,
+            "sub": [materialize_rb(b) for b in rb.buffer],
+        }
+    raise TypeError(f"{type(rb).__name__} is not a checkpointable replay buffer")
+
+
+def restore_buffer(saved: Dict[str, Any]):
+    """The buffer of a checkpoint's ``"rb"`` (``utils/callback.py:restore_buffer``)."""
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
+
+    if saved["kind"] == "replay":
+        cls = SequentialReplayBuffer if saved["cls"] == "SequentialReplayBuffer" else ReplayBuffer
+        rb = cls(saved["buffer_size"], saved["n_envs"], obs_keys=tuple(saved["obs_keys"]))
+        if saved["data"]:
+            rb.add(dict(saved["data"]))
+            rb._pos = int(saved["pos"])
+            rb._full = bool(saved["full"])
+            for k, v in saved["data"].items():
+                rb.buffer[k][:] = v
+        return rb
+    if saved["kind"] == "env_independent":
+        rb = EnvIndependentReplayBuffer(
+            saved["buffer_size"], saved["n_envs"], buffer_cls=SequentialReplayBuffer
+        )
+        rb._buf = [restore_buffer(s) for s in saved["sub"]]
+        return rb
+    raise ValueError(f"Unknown buffer kind: {saved.get('kind')}")
 
 
 def _nonfinite_leaves(tree: Any, prefix: str = "") -> list:
@@ -92,7 +168,12 @@ class CheckpointManager:
     def checkpoint_now(self, *, policy_step: int, state_fn: Callable[[], Dict[str, Any]]) -> str:
         self.last_checkpoint = policy_step
         path = self.ckpt_path(policy_step)
-        host_state = to_host(state_fn())
+        state = state_fn()
+        restore = _ckpt_rb(state["rb"]) if "rb" in state else []
+        try:
+            host_state = to_host({k: materialize_rb(v) if k == "rb" else v for k, v in state.items()})
+        finally:
+            _restore_rb(restore)
         if not self.allow_nonfinite and "agent" in host_state:
             bad = _nonfinite_leaves(host_state["agent"])
             if bad:

@@ -51,8 +51,11 @@ import torch
 
 __all__ = [
     "ConversionError",
+    "adam_state_from_tree",
+    "adam_state_to_tree",
     "flatten_tree",
     "flax_to_torch",
+    "group_to_flax",
     "load_flax_params",
     "moments_to_torch",
     "opt_state_from_tree",
@@ -199,18 +202,59 @@ def _sac_critic(m: _Mapper, critic, src: str, dst: str) -> None:
         m.put(f"{dst}.biases.{i}", m.take(f"{src}/params/MLP_0/Dense_{i}/bias"))
 
 
-class _Pairs:
-    """Records the (flax path, port key, transposed) pairs of a mapping
-    written against :class:`_Mapper`'s ``dense``/``norm``, for the inverse."""
+class _Ref:
+    """A flax leaf as a mapping takes it: its path and the layout operations
+    (``.T``, ``.transpose``, a flip) applied on the way to the port."""
 
-    def __init__(self):
-        self.pairs = []
+    def __init__(self, path: str, ops: tuple = ()):
+        self.path, self.ops = path, ops
 
-    def dense(self, src: str, dst: str) -> None:
-        self.pairs += [(f"{src}/kernel", f"{dst}.weight", True), (f"{src}/bias", f"{dst}.bias", False)]
+    @property
+    def T(self) -> "_Ref":
+        return _Ref(self.path, self.ops + (("transpose", None),))
 
-    def norm(self, src: str, dst: str) -> None:
-        self.pairs += [(f"{src}/scale", f"{dst}.weight", False), (f"{src}/bias", f"{dst}.bias", False)]
+    def transpose(self, *axes) -> "_Ref":
+        return _Ref(self.path, self.ops + (("transpose", axes),))
+
+    def __getitem__(self, index) -> "_Ref":
+        return _Ref(self.path, self.ops + (("flip", index),))
+
+
+class _Inverse(_Mapper):
+    """Runs a flax-to-port mapping backwards over port tensors: every
+    ``put(key, take(path)...)`` writes ``tensors[key]`` to ``path`` through
+    the inverse layout operations.  A leaf the port does not hold (a bias,
+    a LayerNorm) is left out of the tree, as the JAX modules leave it out."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__({})
+        self.tensors = tensors
+
+    def take(self, path: str) -> _Ref:
+        return _Ref(path)
+
+    def has(self, path: str) -> bool:
+        return True
+
+    def put(self, key: str, ref: _Ref) -> None:
+        if key not in self.tensors:
+            return
+        arr = self.tensors[key].detach().to("cpu", torch.float32).numpy()
+        for op, arg in reversed(ref.ops):
+            if op == "transpose":
+                arr = arr.T if arg is None else arr.transpose(np.argsort(arg))
+            else:  # a flip is its own inverse
+                arr = arr[arg]
+        if ref.path in self.flat:
+            raise ConversionError(f"two port tensors map to {ref.path!r}")
+        self.flat[ref.path] = np.ascontiguousarray(arr)
+        self.used.add(key)
+
+    def tree(self) -> Dict[str, Any]:
+        unused = sorted(set(self.tensors) - self.used)
+        if unused:
+            raise ConversionError(f"port tensors with no place in the flax tree: {unused[:8]}")
+        return unflatten_tree(self.flat)
 
 
 def _flax_mlp(m, src: str, dst: str, mlp: torch.nn.Module) -> None:
@@ -239,21 +283,15 @@ def _is_ppo(agent: torch.nn.Module) -> bool:
 
 
 def torch_to_flax(agent: torch.nn.Module, tensors: Dict[str, torch.Tensor] = None) -> Dict[str, Any]:
-    """The JAX package's PPO/A2C variables tree (numpy f32) from ``agent``'s
-    parameters, or from ``tensors`` keyed as its ``state_dict`` (an Adam
-    moment, say)."""
-    if not _is_ppo(agent):
-        raise ConversionError(f"torch_to_flax maps PPO/A2C agents, got {type(agent).__name__}")
-    rec = _Pairs()
-    _ppo(rec, agent)
-    src = agent.state_dict() if tensors is None else tensors
-    if set(src) != {dst for _, dst, _ in rec.pairs}:
-        raise ConversionError(f"tensors do not match the agent's parameters: {sorted(set(src) ^ {d for _, d, _ in rec.pairs})[:8]}")
-    flat = {}
-    for path, dst, transposed in rec.pairs:
-        arr = src[dst].detach().to("cpu", torch.float32).numpy()
-        flat[path] = np.ascontiguousarray(arr.T if transposed else arr)
-    return unflatten_tree(flat)
+    """The inverse of :func:`flax_to_torch`: the JAX package's tree (numpy
+    f32) from ``agent``'s parameters, or from ``tensors`` keyed as its
+    ``state_dict`` (an Adam moment, say)."""
+    m = _Inverse(agent.state_dict() if tensors is None else tensors)
+    if _is_ppo(agent):
+        _ppo(m, agent)
+    else:
+        _map_agent(m, agent)
+    return m.tree()
 
 
 def _is_sac(agent: torch.nn.Module) -> bool:
@@ -291,38 +329,41 @@ def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, tor
         return _finish(m, agent.state_dict())
     if _is_sac(agent):
         expect = {"actor", "critic", "target_critic", "log_alpha"}
-        if set(tree) != expect:
-            raise ConversionError(f"expected keys {sorted(expect)}, got {sorted(tree)}")
-        m = _Mapper(flatten_tree(tree))
-        _sac_actor(m, agent.actor, "actor", "actor")
-        for name in ("critic", "target_critic"):
-            _sac_critic(m, getattr(agent, name), name, name)
-        m.put("log_alpha", m.take("log_alpha"))
-        return _finish(m, agent.state_dict())
-    full = _is_full_agent(agent)
-    expect = {"world_model", "actor", "critic", "target_critic"} if full else {"world_model", "actor"}
+    elif _is_full_agent(agent):
+        expect = {"world_model", "actor", "critic", "target_critic"}
+    else:
+        expect = {"world_model", "actor"}
     if set(tree) != expect:
         raise ConversionError(f"expected keys {sorted(expect)}, got {sorted(tree)}")
-    if full:
+    if _is_sac(agent) or _is_full_agent(agent):
         flat = flatten_tree(tree)
     else:
         wm_tree = {k: v for k, v in tree["world_model"].items() if k not in UNSERVED}
         flat = flatten_tree({"world_model": wm_tree, "actor": tree["actor"]})
     m = _Mapper(flat)
+    _map_agent(m, agent)
+    return _finish(m, agent.state_dict())
+
+
+def _map_agent(m, agent: torch.nn.Module) -> None:
+    """The whole mapping of a SAC agent, a DreamerV3 agent or a DreamerV3 player."""
+    if _is_sac(agent):
+        _sac_actor(m, agent.actor, "actor", "actor")
+        for name in ("critic", "target_critic"):
+            _sac_critic(m, getattr(agent, name), name, name)
+        m.put("log_alpha", m.take("log_alpha"))
+        return
     wm = agent.world_model
     _encoder_rssm(m, wm, "world_model", "world_model")
-    if full:
+    if _is_full_agent(agent):
         _training_heads(m, wm, "world_model", "world_model")
         for name in ("critic", "target_critic"):
             m.mlp(f"{name}/params", name, len(getattr(agent, name).layers), head=True)
     _actor(m, agent.actor, "actor", "actor")
-    return _finish(m, agent.state_dict())
 
 
-def _group_params(tree: Dict[str, Any], module: torch.nn.Module, group: str) -> Dict[str, torch.Tensor]:
-    """One optimizer group's tree (world_model, actor or critic) in the
-    layout of ``module.named_parameters()``."""
-    m = _Mapper(flatten_tree({group: tree}))
+def _map_group(m, module: torch.nn.Module, group: str) -> None:
+    """The mapping of one optimizer group (world_model, actor or critic)."""
     if group == "world_model":
         _encoder_rssm(m, module, group, group)
         _training_heads(m, module, group, group)
@@ -334,6 +375,12 @@ def _group_params(tree: Dict[str, Any], module: torch.nn.Module, group: str) -> 
         _sac_critic(m, module, group, group)
     else:
         m.mlp(f"{group}/params", group, len(module.layers), head=True)
+
+
+def _group_params(tree: Dict[str, Any], module: torch.nn.Module, group: str) -> Dict[str, torch.Tensor]:
+    """One optimizer group's tree in the layout of ``module.named_parameters()``."""
+    m = _Mapper(flatten_tree({group: tree}))
+    _map_group(m, module, group)
     want = {f"{group}.{k}": v for k, v in module.named_parameters()}
     return {k[len(group) + 1 :]: v for k, v in _finish(m, want).items()}
 
@@ -383,6 +430,41 @@ def load_flax_params(agent: torch.nn.Module, tree: Dict[str, Any]) -> torch.nn.M
     """Convert ``tree`` and load it into ``agent`` (on the agent's device)."""
     agent.load_state_dict(flax_to_torch(tree, agent), strict=True)
     return agent
+
+
+def group_to_flax(tensors: Dict[str, torch.Tensor], module: torch.nn.Module, group: str) -> Dict[str, Any]:
+    """The inverse of :func:`_group_params`: one optimizer group's tensors
+    (keyed as ``module.named_parameters()``) as the group's flax tree."""
+    m = _Inverse({f"{group}.{k}": v for k, v in tensors.items()})
+    _map_group(m, module, group)
+    return m.tree()[group]
+
+
+def adam_state_to_tree(state: Any, module: torch.nn.Module, group: str) -> Dict[str, Any]:
+    """One group's Adam state for a checkpoint: ``{"count", "mu", "nu"}``,
+    its moments in the JAX package's layout of the group (SAC's ``alpha``:
+    the ``log_alpha`` leaf)."""
+    if group == "alpha":
+        return {"count": int(state.count), "mu": state.mu["log_alpha"], "nu": state.nu["log_alpha"]}
+    return {"count": int(state.count), "mu": group_to_flax(state.mu, module, group),
+            "nu": group_to_flax(state.nu, module, group)}
+
+
+def adam_state_from_tree(tree: Dict[str, Any], module: torch.nn.Module, group: str, device=None):
+    """The inverse of :func:`adam_state_to_tree`, on ``device`` (the module's by default)."""
+    from sheeprl_tpu_torch.optim import AdamState
+
+    if not isinstance(tree, dict) or set(tree) != {"count", "mu", "nu"}:
+        raise ConversionError(
+            f"the checkpoint's {group} optimizer state is not the port's Adam state (keys count, mu, nu); "
+            "only checkpoints written by the port resume"
+        )
+    dev = next(module.parameters()).device if device is None else device
+    if group == "alpha":
+        mu, nu = ({"log_alpha": torch.as_tensor(np.asarray(tree[k]), dtype=torch.float32, device=dev)} for k in ("mu", "nu"))
+    else:
+        mu, nu = ({k: v.to(dev) for k, v in _group_params(tree[m], module, group).items()} for m in ("mu", "nu"))
+    return AdamState(int(np.asarray(tree["count"])), mu, nu)
 
 
 def opt_state_to_tree(state: Any, agent: torch.nn.Module) -> Dict[str, Any]:

@@ -18,7 +18,12 @@ __all__ = ["ALGORITHM_MODULES", "algorithm_registry", "find_algorithm", "load_al
 algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
 
 #: the port's modules that register a training entry point
-ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.ppo.ppo", "sheeprl_tpu_torch.algos.a2c.a2c")
+ALGORITHM_MODULES = (
+    "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.sac.sac",
+)
 
 
 def register_algorithm() -> Callable:

@@ -3,14 +3,20 @@
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+import warnings
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = [
     "MetricFetchGate",
+    "Ratio",
+    "check_loop_scope",
     "ema_",
+    "fetch_actions",
+    "fetch_metrics",
     "gae",
     "grads_or_zeros",
     "lambda_values",
@@ -119,6 +125,97 @@ def polynomial_decay(
     if current_step > max_decay_steps or initial == final:
         return final
     return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
+
+
+# metric.* knobs of the JAX package's observability layer (ROADMAP A7)
+_OBSERVABILITY = ("profile", "profile_every_n", "telemetry", "telemetry_tb_mirror", "tracing", "live", "ledger")
+
+
+def _on(value: Any) -> bool:
+    return value not in (None, False, 0, "", "off", "false", "False")
+
+
+def check_loop_scope(runtime, cfg: Any, algo: str, off_policy: bool = False) -> None:
+    """Raise, naming its ROADMAP item, for what no training loop of the
+    port runs yet: ``fabric.devices > 1`` (A5), the training-health
+    sentinel (A2) and the observability knobs (A7); for the off-policy
+    loops also ``buffer.memmap`` and ``bf16-true`` (A2)."""
+    if runtime.world_size > 1:
+        raise NotImplementedError(f"{algo} with fabric.devices > 1 (the DDP core over shards) waits for ROADMAP A5")
+    if (cfg.algo.get("sentinel") or {}).get("enabled", False):
+        raise NotImplementedError("algo.sentinel.enabled (the training-health sentinel) waits for ROADMAP A2")
+    on = [f"metric.{k}" for k in _OBSERVABILITY if _on(cfg.metric.get(k))]
+    if on:
+        raise NotImplementedError(f"{', '.join(on)}: the port's observability layer waits for ROADMAP A7")
+    if off_policy and cfg.buffer.get("memmap", False):
+        raise NotImplementedError("buffer.memmap=True (memory-mapped replay) waits for ROADMAP A2; use buffer.memmap=False")
+    if off_policy and runtime.precision == "bf16-true":
+        raise NotImplementedError("fabric.precision=bf16-true (bf16 parameters with f32 master weights) waits for ROADMAP A2")
+
+
+class Ratio:
+    """Replay-ratio scheduler: how many gradient steps a count of policy
+    steps grants (the JAX package's ``Ratio``, from Hafner's dreamerv3).
+    Host-side and checkpointable: ``state_dict`` holds ``_ratio``,
+    ``_prev`` and ``_pretrain_steps``."""
+
+    def __init__(self, ratio: float, pretrain_steps: int = 0):
+        if pretrain_steps < 0:
+            raise ValueError(f"'pretrain_steps' must be non-negative, got {pretrain_steps}")
+        if ratio < 0:
+            raise ValueError(f"'ratio' must be non-negative, got {ratio}")
+        self._pretrain_steps = pretrain_steps
+        self._ratio = ratio
+        self._prev: Optional[float] = None
+
+    def __call__(self, step: int) -> int:
+        if self._ratio == 0:
+            return 0
+        repeats = 0
+        if self._prev is None:
+            self._prev = step
+            repeats = 1
+            if self._pretrain_steps > 0:
+                if step < self._pretrain_steps:
+                    warnings.warn("on the first step, more steps than pretrain_steps have already been done", UserWarning)
+                repeats = round(self._pretrain_steps * self._ratio)
+        repeats += round((step - self._prev) * self._ratio)
+        self._prev += repeats / self._ratio
+        return int(repeats)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"_ratio": self._ratio, "_prev": self._prev, "_pretrain_steps": self._pretrain_steps}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "Ratio":
+        self._ratio = state["_ratio"]
+        self._prev = state["_prev"]
+        self._pretrain_steps = state["_pretrain_steps"]
+        return self
+
+
+def fetch_actions(
+    action_list: Sequence[torch.Tensor], actions_dim: Sequence[int], is_continuous: bool, num_envs: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The player's per-head actions on the host in one copy:
+    ``(actions, real_actions)``, the flat ``(1, num_envs, sum(actions_dim))``
+    buffer layout and the env-facing form (the concatenated floats for a
+    continuous space, each head's argmax for discrete ones)."""
+    flat = torch.cat(list(action_list), -1).cpu().numpy()
+    actions = flat.reshape(1, num_envs, -1)
+    if is_continuous:
+        real_actions = flat
+    else:
+        segments = np.split(flat, np.cumsum(np.asarray(actions_dim))[:-1], axis=-1)
+        real_actions = np.stack([seg.argmax(-1) for seg in segments], -1)
+    return actions, real_actions
+
+
+def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Scalar device metrics to host floats in one copy."""
+    if not metrics:
+        return {}
+    values = torch.stack([v.detach().reshape(()).float() for v in metrics.values()]).tolist()
+    return dict(zip(metrics, values))
 
 
 class MetricFetchGate:

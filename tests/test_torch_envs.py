@@ -192,13 +192,14 @@ def test_vector_step_auto_reset_reports_episodes():
 
 
 def test_device_vector_env_describes_the_family():
-    """``DeviceVectorEnv`` is what the loop reads: the family, the count,
-    the time limit (the family's unless given) and the single-env spaces."""
+    """``DeviceVectorEnv`` is what the loops read: the family, the count,
+    the time limit (the family's unless given), the single-env spaces, and
+    the stepping API of the off-policy loops (``test_torch_gridworld.py``)."""
     envs = DeviceVectorEnv(CartPole(max_episode_steps=7), 3, device="cpu")
     assert envs.num_envs == 3 and envs.max_episode_steps == 7 and envs.device.type == "cpu"
     assert envs.single_action_space.n == 2 and envs.single_observation_space["state"].shape == (4,)
     assert DeviceVectorEnv(Pendulum(), 2, max_episode_steps=9, device="cpu").max_episode_steps == 9
-    assert not hasattr(envs, "step") and "num_envs=3" in repr(envs)
+    assert callable(envs.step) and callable(envs.reset) and "num_envs=3" in repr(envs)
 
 
 def test_registry_ids_and_spaces():
@@ -206,8 +207,8 @@ def test_registry_ids_and_spaces():
     pend = make_device_env("jax_pendulum", randomize=True, max_episode_steps=50)
     assert isinstance(pend.action_space, spaces.Box) and pend.action_space.shape == (1,) and pend.max_episode_steps == 50
     assert pend.observation_space["state"].high.tolist() == [1.0, 1.0, 8.0]
-    with pytest.raises(NotImplementedError, match="A2"):
-        make_device_env("jax_gridworld")
+    grid = make_device_env("jax_gridworld", size=7, view=3)
+    assert isinstance(grid.action_space, spaces.Discrete) and grid.observation_space["state"].shape == (13,)
     with pytest.raises(ValueError, match="Unknown device env"):
         make_device_env("CartPole-v1")
     assert spaces.MultiDiscrete([2, 3]).nvec.tolist() == [2, 3] and "state" in spaces.Dict({"state": spaces.Discrete(2)})

@@ -409,7 +409,7 @@ def test_port_scope_raises_name_their_roadmap_items(tmp_path, capsys):
         "buffer.memmap=True": "A2",
         "checkpoint.sharded=True": "A5",
         "checkpoint.resume_from=auto": "A6",
-        "env.id=jax_gridworld": "A2",
+        "env.capture_video=True": "A2",
         "fabric.strategy=fsdp": "A5",
     }
     for override, item in cases.items():
