@@ -335,6 +335,46 @@ PPO_RUN_TOL = 1e-5  # values and log-probs, the card's first rollout against the
 # (`max_abs_param_err_faulted_update`) and fails if the limit cannot see it.
 PPO_PARAM_TOL = 1e-5
 
+# The recurrent-PPO phases: `exp=ppo_recurrent env=jax_cartpole
+# algo.env_backend=jax` as published: 16 envs, rollout 512, sequences of
+# 16, 8 minibatches, 8 epochs, LSTM 64, dense 64, AdamW 3e-4 / eps 1e-4.
+# No cut.  The card's first rollout against the CPU's from the same
+# parameters and noise: actions and dones identical, values, log-probs,
+# the recorded carry and the bootstrap values within RPPO_RUN_TOL.  Its
+# first update (64 AdamW steps, each a 16-step BPTT over 64 sequences)
+# step-locked: each step's gradient taken on the CPU at the card's state
+# before it; the median over the steps of its error relative to the
+# gradient's largest magnitude within RPPO_GRAD_RTOL, a limit that the same
+# with every sequence started from the carry stored one step late must
+# exceed.  The median, because a ReLU or the surrogate's clip that flips
+# on a rounding difference moves one step's gradient by a few percent; so
+# also at most one step in RPPO_STEPS_ABOVE_SHARE_INV above RPPO_GRAD_RTOL,
+# a count that the same with the last epoch's sequences taken in another
+# order must exceed, and the parameters of each AdamW step, taken on the
+# CPU from the card's state before it, within RPPO_STEP_PARAM_TOL of the
+# card's after it (which holds the card's AdamW step too).
+# Free-running, two sound updates part for the same reason (the phase
+# prints the CPU against itself with its inputs perturbed by 1e-6
+# relative beside the card's reading): RPPO_FREE_TOL only bounds that.
+RPPO_EXP = ["exp=ppo_recurrent", "env=jax_cartpole", "algo.env_backend=jax", "metric.log_level=0"]
+RPPO_ITERS = 3
+RPPO_RUN_TOL = 1e-5
+RPPO_GRAD_RTOL = 1e-4
+RPPO_STEPS_ABOVE_SHARE_INV = 16
+RPPO_STEP_PARAM_TOL = 1e-5
+RPPO_FREE_TOL = 2e-3
+RPPO_CLI_RUNS = {"jax_cartpole": [], "jax_pendulum": ["env.id=jax_pendulum"]}
+# The serving families (PPO, SAC, recurrent PPO) at their exps' widths,
+# random weights from cfg.seed: served on the card, replayed on the CPU.
+SERVE_FAMILIES = {
+    "ppo": ["exp=ppo", "env=jax_cartpole", "algo.env_backend=jax"],
+    "sac": ["exp=sac", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax", "algo.mlp_keys.encoder=[state]"],
+    "ppo_recurrent": ["exp=ppo_recurrent", "env=jax_cartpole", "algo.env_backend=jax"],
+}
+SERVE_FAMILY_STEPS = 3
+SERVE_FAMILY_TOL = 1e-5
+SERVE_LATENCY_CALLS = 20
+
 # The off-policy CLI phases: DreamerV3 (exp=dreamer_v3, DreamerV3-S widths,
 # MLP keys only) and SAC (exp=sac) through sheeprl_tpu_torch.cli.run on the
 # port's device envs.  DV3 steps one env, as the DV3 exps' published
@@ -1481,8 +1521,9 @@ def check_write_cases(torch, base, depth: int, n_leaves: int, kinds, owner) -> l
             if not bool((owner == -1).all()):
                 raise AssertionError(f"sum_tree_{kind} at {lanes} lanes: the owner scratch was left dirty")
             # a profiler window can drop a kernel's record (PERF.md 7: readings of
-            # 0.8 and 0.95 ops a call), so the fuller of two windows is kept
-            dev_ms, dev_ops = device_ms(torch, lambda: kernel(a), iters=5, warmup=1, ops=True, windows=2)
+            # 0.8 and 0.95 ops a call; two windows both read 0.8 once), so the
+            # fullest of four windows is kept
+            dev_ms, dev_ops = device_ms(torch, lambda: kernel(a), iters=5, warmup=1, ops=True, windows=4)
             if dev_ops != 1:
                 raise AssertionError(f"sum_tree_{kind} at {lanes} lanes: {dev_ops} device operations a call, want 1")
             row = {"kind": kind, "lanes": lanes, "depth": depth, "device_ms": dev_ms, "device_ops": dev_ops,
@@ -2433,8 +2474,18 @@ def _cases(cases: list, kind: str) -> list:
     return [{k: c[k] for k in ("lanes", "device_ms", "device_ops")} for c in cases if c["kind"] == kind]
 
 
+# the keys every entry of the kernels line has, with the meaning the line's contract gives them
+KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: dict, row: dict, shape: str, **extra) -> dict:
-    """One entry of the ``kernels`` line from a kernel's timing row."""
+    """One entry of the ``kernels`` line from a kernel's timing row;
+    ``extra`` adds keys and may not replace one of :data:`KERNEL_LINE_KEYS`
+    (``route`` is the build route, ``cuda``, not a kernel's own route)."""
+    clash = sorted(set(extra) & set(KERNEL_LINE_KEYS))
+    if clash:
+        raise ValueError(f"{name}: extra keys {clash} would replace the kernels line's own")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2672,6 +2723,390 @@ def run_ppo_cli(device: str, *, overrides=()) -> dict:
                                   "test_reward": resumed["test_reward"],
                                   "checkpoint": os.path.relpath(resumed["checkpoint"], root)}
             out[f"{exp}_{env}"] = row
+    return out
+
+
+def rppo_setup(torch, cfg, device: str):
+    """The recurrent PPO of ``cfg`` on ``device``: runtime, agent, AdamW
+    state, fused recurrent collector and update, as the port's loop builds
+    them."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import build_ppo_optimizer
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import make_update_fn
+    from sheeprl_tpu_torch.envs.device.collect import FusedRecurrentCollector
+    from sheeprl_tpu_torch.envs.spaces import action_space_dims
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.utils.env import make_train_envs
+    from sheeprl_tpu_torch.utils.utils import trainable_params
+
+    runtime = MeshRuntime(device=device, precision=cfg.fabric.precision, seed=int(cfg.seed)).launch()
+    envs = make_train_envs(cfg, runtime)
+    actions_dim, cont = action_space_dims(envs.single_action_space)
+    agent = build_agent(runtime, actions_dim, cont, cfg, envs.single_observation_space)
+    tx = build_ppo_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, runtime.precision)
+    keys = list(cfg.algo.mlp_keys.encoder)
+    collector = FusedRecurrentCollector(envs=envs, agent=agent, cfg=cfg, runtime=runtime, obs_keys=keys,
+                                        total_envs=envs.num_envs)
+    return {"runtime": runtime, "agent": agent, "opt": tx.init(trainable_params(agent)), "collector": collector,
+            "update": make_update_fn(runtime, agent, tx, cfg, keys), "tx": tx, "step": tx.update}
+
+
+def _profiled(torch, fn, sync) -> dict:
+    """``fn()`` once under the profiler: its wall time, device time, idle
+    share and device operations (``_device_time``)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    return _device_time(torch, prof, 1, wall)
+
+
+def _record_steps(tx, sink: list) -> None:
+    """Wrap ``tx.update`` so that every AdamW step appends the gradients it
+    took and the parameters and moments it left, on the CPU, to ``sink``."""
+    step = tx.update
+
+    def update(params, grads, state, norm=None):
+        step(params, grads, state, norm)
+        sink.append({"grads": {k: v.detach().cpu().clone() for k, v in grads.items()},
+                     "params": {k: v.detach().cpu().clone() for k, v in params.items()},
+                     "mu": {k: v.detach().cpu().clone() for k, v in state.mu.items()},
+                     "nu": {k: v.detach().cpu().clone() for k, v in state.nu.items()}})
+
+    tx.update = update
+
+
+def _lock_steps(tx, card_steps: list, sink: list) -> None:
+    """Wrap a CPU ``tx.update`` to run step-locked to ``card_steps``: each
+    step's gradients (taken at the card's parameters) and the parameters it
+    computes from the card's state go to ``sink``; then the parameters and
+    moments are set to the card's after that step, so that the next
+    gradient is taken where the card took its own."""
+    import torch
+
+    step = tx.update
+
+    def update(params, grads, state, norm=None):
+        card = card_steps[len(sink)]
+        step(params, grads, state, norm)
+        sink.append({"grads": {k: v.detach().clone() for k, v in grads.items()},
+                     "params": {k: v.detach().clone() for k, v in params.items()}})
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(card["params"][name])
+                state.mu[name].copy_(card["mu"][name])
+                state.nu[name].copy_(card["nu"][name])
+
+    tx.update = update
+
+
+def _step_errors(card_steps: list, cpu_steps: list) -> dict:
+    """Step-locked card against CPU: the largest parameter error of one
+    AdamW step from the same state, and each step's gradient error relative
+    to the card gradient's largest magnitude."""
+    grad_rel, param_err = [], []
+    for card, cpu in zip(card_steps, cpu_steps):
+        grad_rel.append(max(_max_err(card["grads"][k], v) / max(float(card["grads"][k].abs().max()), 1e-30)
+                            for k, v in cpu["grads"].items()))
+        param_err.append(max(_max_err(card["params"][k], v) for k, v in cpu["params"].items()))
+    order = sorted(grad_rel)
+    return {"steps": len(param_err), "max_abs_param_err_one_step": max(param_err),
+            "grad_rel_err_median": order[len(order) // 2], "grad_rel_err_max": order[-1],
+            "steps_grad_rel_err_above_1e-4": sum(r > 1e-4 for r in grad_rel)}
+
+
+def _step_gate(check: dict) -> list:
+    """The step-locked limits that ``check`` (``_step_errors``) breaks."""
+    broken = []
+    if check["grad_rel_err_median"] > RPPO_GRAD_RTOL:
+        broken.append(f"median gradient error {check['grad_rel_err_median']} > {RPPO_GRAD_RTOL}")
+    if check["steps_grad_rel_err_above_1e-4"] > check["steps"] // RPPO_STEPS_ABOVE_SHARE_INV:
+        broken.append(f"{check['steps_grad_rel_err_above_1e-4']} of {check['steps']} steps above {RPPO_GRAD_RTOL}")
+    if check["max_abs_param_err_one_step"] > RPPO_STEP_PARAM_TOL:
+        broken.append(f"one-step parameters {check['max_abs_param_err_one_step']} > {RPPO_STEP_PARAM_TOL}")
+    return broken
+
+
+def run_rppo_training(device: str, *, overrides=(), iters: int = RPPO_ITERS) -> dict:
+    """Recurrent PPO on CartPole at the published config on ``device``: the
+    card's first rollout and update against the same on the CPU (same
+    parameters, noise, data and permutations), ``iters`` timed iterations
+    of the fused recurrent collect and ``make_update_fn``, and, on the
+    card, one more rollout and update under the profiler.  The first
+    update records every AdamW step to the host for the check, so its
+    time is ``update_ms_recorded`` and ``update_ms`` starts at iteration 2.
+
+    The update is held against the CPU step-locked (``_step_gate``):
+    its ReLUs and the clipped surrogate make it discontinuous, so two
+    sound updates that differ by rounding part after a few dozen AdamW
+    steps (``free_running``: the card's free-running update against the
+    CPU's, beside the CPU's own against itself with its inputs perturbed by
+    1e-6 relative)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import epoch_permutations
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import sequence_layout
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.utils import fetch_metrics
+
+    cuda = device.startswith("cuda")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = compose(overrides=[*RPPO_EXP, f"fabric.accelerator={'cuda' if cuda else 'cpu'}", *overrides])
+    t_len, n_envs, epochs = int(cfg.algo.rollout_steps), int(cfg.env.num_envs), int(cfg.algo.update_epochs)
+    n_seqs, mb, n_mb, n_used = sequence_layout(t_len, n_envs, int(cfg.algo.per_rank_sequence_length),
+                                               int(cfg.algo.per_rank_num_batches))
+    coefs = {"clip_coef": float(cfg.algo.clip_coef), "ent_coef": float(cfg.algo.ent_coef),
+             "lr": float(cfg.algo.optimizer.learning_rate)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    card, ref = rppo_setup(torch, cfg, device), rppo_setup(torch, cfg, "cpu")
+    initial = {k: v.detach().cpu().clone() for k, v in card["agent"].state_dict().items()}
+    ref["agent"].load_state_dict(initial)
+    ref["collector"].carry = _to(card["collector"].carry, "cpu")
+    g = torch.Generator().manual_seed(int(cfg.seed))
+    noise = ref["collector"].draw_noise(generator=g, device="cpu")
+    perms = epoch_permutations(n_seqs, n_used, epochs, g, "cpu")
+
+    # iteration 1: the card's rollout and update, from CPU-drawn noise and permutations
+    col = card["collector"]
+    sync()
+    t0 = time.perf_counter()
+    col.carry, data, events, next_values = col.rollout(col.carry, _to(noise, device))
+    sync()
+    rollout_ms = [(time.perf_counter() - t0) * 1e3]
+    _, data_c, _, next_values_c = ref["collector"].rollout(ref["collector"].carry, noise)
+    if not (torch.equal(data["actions"].cpu(), data_c["actions"]) and torch.equal(data["dones"].cpu(), data_c["dones"])):
+        raise AssertionError("the card's first recurrent rollout took other actions or dones than the CPU's")
+    agree = {k: _max_err(data[k], data_c[k]) for k in ("values", "logprobs", "rewards", "state", "prev_hx", "prev_cx",
+                                                        "prev_actions")}
+    agree["next_values"] = _max_err(next_values, next_values_c)
+    if max(v for k, v in agree.items() if k != "state") > RPPO_RUN_TOL:
+        raise AssertionError(f"card vs CPU recurrent rollout: {agree} > {RPPO_RUN_TOL}")
+    card_steps: list = []
+    _record_steps(card["tx"], card_steps)
+    sync()
+    t0 = time.perf_counter()
+    metrics = card["update"](card["opt"], data, next_values, perms=perms.to(device), **coefs)
+    sync()
+    update_ms_recorded = (time.perf_counter() - t0) * 1e3
+    update_ms = []
+    card["tx"].update = card["step"]
+    data_cpu, nv_cpu = _to(data, "cpu"), next_values.cpu()
+
+    def cpu_update(perms_, data_=data_cpu, locked=None):
+        """The CPU's update from the card's initial parameters: free-running,
+        or step-locked to the card's steps with ``locked`` its sink."""
+        run = rppo_setup(torch, cfg, "cpu")
+        run["agent"].load_state_dict(initial)
+        if locked is not None:
+            _lock_steps(run["tx"], card_steps, locked)
+        out = run["update"](run["opt"], data_, nv_cpu, perms=perms_, **coefs)
+        return out, dict(run["agent"].named_parameters())
+
+    locked: list = []
+    metrics_c, _ = cpu_update(perms, locked=locked)
+    step_check = _step_errors(card_steps, locked)
+    if step_check["steps"] != epochs * n_mb or _step_gate(step_check):
+        raise AssertionError(f"card vs CPU update from the same state: {_step_gate(step_check)} ({step_check})")
+    # the same with two faults, each of which the gate must see: every
+    # sequence starts from the carry stored one step later than its own;
+    # the last epoch takes its sequences in another order (that epoch's
+    # steps only)
+    shifted = {**data_cpu, "prev_hx": torch.roll(data_cpu["prev_hx"], -1, 0), "prev_cx": torch.roll(data_cpu["prev_cx"], -1, 0)}
+    faulted: list = []
+    cpu_update(perms, shifted, locked=faulted)
+    fault_carry = _step_errors(card_steps, faulted)
+    reordered = perms.clone()
+    reordered[-1] = torch.roll(perms[-1], 1)
+    faulted = []
+    cpu_update(reordered, locked=faulted)
+    fault_epoch = _step_errors(card_steps, faulted)
+    for name, fault in (("carry one step late", fault_carry), ("last epoch reordered", fault_epoch)):
+        if not _step_gate(fault):
+            raise AssertionError(f"a faulted recurrent update ({name}) passes the step-locked gate: {fault}")
+    card_params = dict(card["agent"].named_parameters())
+    _, free = cpu_update(perms)
+    free_err = max(_max_err(card_params[k], v) for k, v in free.items())
+    noisy = torch.Generator().manual_seed(1)
+    perturbed_data = {k: v * (1 + 1e-6 * torch.randn(v.shape, generator=noisy))
+                      if k in ("values", "logprobs", "prev_hx", "prev_cx", "state") else v for k, v in data_cpu.items()}
+    _, perturbed = cpu_update(perms, perturbed_data)
+    spread = max(_max_err(free[k], v) for k, v in perturbed.items())
+    if free_err > RPPO_FREE_TOL:
+        raise AssertionError(f"card vs CPU parameters after a free-running update: {free_err} > {RPPO_FREE_TOL}")
+    loss_err = max(abs(float(metrics[k]) - float(metrics_c[k])) for k in metrics)
+    losses = [fetch_metrics(metrics)]
+    episodes = int(events["done"].sum())
+
+    # iterations 2..iters: the loop's own draws from the run's generator
+    for k in range(2, iters + 1):
+        sync()
+        t0 = time.perf_counter()
+        payload = col.collect(k)
+        sync()
+        rollout_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        metrics = card["update"](card["opt"], payload.data, payload.next_values, **coefs)
+        sync()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(fetch_metrics(metrics))
+    if not all(all(v == v and abs(v) < 1e6 for v in m.values()) for m in losses):
+        raise AssertionError(f"non-finite recurrent PPO losses: {losses}")
+    res = {
+        "config": f"exp=ppo_recurrent env=jax_cartpole: {n_envs} envs, rollout {t_len}, sequences of "
+                  f"{cfg.algo.per_rank_sequence_length}, {n_mb} minibatches of {mb} sequences, {epochs} epochs, "
+                  f"LSTM {cfg.algo.rnn.lstm.hidden_size}",
+        "rollout_ms": rollout_ms, "update_ms": update_ms, "update_ms_recorded": update_ms_recorded,
+        "collect_env_steps_per_s": [t_len * n_envs / (ms / 1e3) for ms in rollout_ms],
+        "losses": losses, "episodes_in_first_rollout": episodes,
+        "card_vs_cpu": {"actions": "identical", "dones": "identical", **{f"max_abs_err_{k}": v for k, v in agree.items()},
+                        "tol": RPPO_RUN_TOL, "max_abs_loss_err": loss_err,
+                        "step_locked": {**step_check, "grad_rtol_median": RPPO_GRAD_RTOL,
+                                        "max_steps_above": step_check["steps"] // RPPO_STEPS_ABOVE_SHARE_INV,
+                                        "param_tol_one_step": RPPO_STEP_PARAM_TOL,
+                                        "faulted_carry": fault_carry, "faulted_last_epoch": fault_epoch},
+                        "free_running": {"max_abs_param_err_after_update": free_err, "tol": RPPO_FREE_TOL,
+                                         "cpu_vs_cpu_inputs_perturbed_1e-6": spread}},
+    }
+    if cuda:
+        res["rollout_profile"] = _profiled(torch, lambda: col.collect(iters + 1), sync)
+        res["update_profile"] = _profiled(
+            torch, lambda: card["update"](card["opt"], payload.data, payload.next_values, **coefs), sync)
+    if cuda:
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def run_rppo_cli(device: str, *, overrides=()) -> dict:
+    """Recurrent PPO through ``sheeprl_tpu_torch.cli.run`` on ``device`` at
+    ``exp=ppo_recurrent``'s width: two iterations on CartPole and on
+    Pendulum (continuous heads), each then resumed from its final
+    checkpoint for one more, in a temporary root dir."""
+    import tempfile
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="rppo_cli_") as root:
+        for env, extra in RPPO_CLI_RUNS.items():
+            base = ["exp=ppo_recurrent", f"env={env}", *extra, "algo.env_backend=jax", f"fabric.accelerator={accel}",
+                    "metric.log_level=0", f"root_dir={root}", f"run_name=rppo_{env}", *overrides]
+            cfg = compose(overrides=base)
+            per_iter = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+            t0 = time.perf_counter()
+            first = run(base + [f"algo.total_steps={2 * per_iter}"])
+            wall = time.perf_counter() - t0
+            if first["test_reward"] is None or not os.path.exists(first["checkpoint"] or ""):
+                raise AssertionError(f"recurrent PPO on {env}: no test reward or no final checkpoint: {first}")
+            t0 = time.perf_counter()
+            resumed = run(base + [f"algo.total_steps={3 * per_iter}", f"run_name=rppo_{env}_resumed",
+                                  f"checkpoint.resume_from={first['checkpoint']}"])
+            resume_wall = time.perf_counter() - t0
+            if resumed["iterations"] != 1 or resumed["policy_step"] != 3 * per_iter \
+                    or not os.path.exists(resumed["checkpoint"] or ""):
+                raise AssertionError(f"recurrent PPO on {env}: the resume did not run one more iteration: {resumed}")
+            out[env] = {"iterations": first["iterations"], "policy_steps": first["policy_step"], "wall_s": wall,
+                        "test_reward": first["test_reward"], "checkpoint": os.path.relpath(first["checkpoint"], root),
+                        "resumed": {"iterations": resumed["iterations"], "policy_steps": resumed["policy_step"],
+                                    "wall_s": resume_wall, "test_reward": resumed["test_reward"],
+                                    "checkpoint": os.path.relpath(resumed["checkpoint"], root)}}
+    return out
+
+
+def _family_server(family: str, cfg, device: str, greedy: bool):
+    """The family's server at ``cfg``'s width, random weights from ``cfg.seed``."""
+    from sheeprl_tpu_torch.envs.spaces import action_space_dims
+    from sheeprl_tpu_torch.serve.serve_policy import (
+        build_ppo_server,
+        build_recurrent_ppo_server,
+        build_sac_server,
+        device_env_spaces,
+    )
+
+    obs_space, action_space = device_env_spaces(cfg)
+    kw = {"device": device, "greedy": greedy, "deadline_ms": 50.0, "max_batch": 64}
+    if family == "sac":
+        server, keys = build_sac_server(cfg, None, obs_space, action_space, **kw)
+    else:
+        actions_dim, cont = action_space_dims(action_space)
+        build = build_ppo_server if family == "ppo" else build_recurrent_ppo_server
+        server, keys = build(cfg, None, obs_space, actions_dim, is_continuous=cont, **kw)
+    return server, keys, obs_space
+
+
+def run_serve_families(device: str, *, steps: int = SERVE_FAMILY_STEPS, calls: int = SERVE_LATENCY_CALLS) -> dict:
+    """The PPO, SAC and recurrent-PPO servers on ``device``: two clients of
+    1 and 3 rows send ``steps`` requests each (session steps for recurrent
+    PPO), and every reply is replayed on the CPU by the family's function
+    over a CPU copy of the served module (PPO and SAC greedy; recurrent PPO
+    sampled, its noise each row's own hash); then the median time of a
+    64-row step of the family's function, ``calls`` calls."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.serve_policy import run_selftest
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    out = {}
+    for family, ovr in SERVE_FAMILIES.items():
+        cfg = compose(overrides=[*ovr, f"fabric.accelerator={accel}", "metric.log_level=0"])
+        greedy = family != "ppo_recurrent"
+        server, keys, space = _family_server(family, cfg, device, greedy)
+        replica, _, _ = _family_server(family, cfg, "cpu", greedy)
+        try:
+            module, replica_module = server.params, replica.params
+            replica_module.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+            res = run_selftest(server, keys, space, 2, steps, rows=[1, 3], close_sessions=False)
+            st = res["selftest"]
+            if st["failures"] or st["dead_reason"] or res["acted"] != 2 * steps:
+                raise AssertionError(f"{family}: not every request was answered remote: {st}")
+            worst = 0.0
+            for cid, log in enumerate(res["log"]):
+                state = None if greedy else replica.init_fn(len(log[0][0][keys[0]]), cid, replica_module)
+                for sent, reply in log:
+                    if state is None:
+                        want = replica.policy_fn(replica_module, sent, 0)
+                    else:
+                        want, state = replica.session_fn(replica_module, sent, state)
+                    for k, v in want.items():
+                        if v.dtype.kind in "iu" and not np.array_equal(v, reply[k]):
+                            raise AssertionError(f"{family}: client {cid} {k} differ from the CPU replay")
+                        worst = max(worst, float(np.abs(np.asarray(v, np.float64) - reply[k]).max()))
+            if worst > SERVE_FAMILY_TOL:
+                raise AssertionError(f"{family}: served vs CPU replay differ by {worst} > {SERVE_FAMILY_TOL}")
+            obs = {k: np.random.default_rng(0).normal(size=(64,) + tuple(space[k].shape)).astype(np.float32) for k in keys}
+            state64 = None if greedy else server.init_fn(64, 0, module)
+
+            def step():
+                return server.policy_fn(module, obs, 1) if greedy else server.session_fn(module, obs, state64)
+
+            step_ms = []
+            for _ in range(calls + 2):
+                if accel == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms = sorted(step_ms[2:])
+            out[family] = {"config": " ".join(ovr), "greedy": greedy, "requests": res["acted"], "batches": res["batches"],
+                           "batch_hist": res["batch_hist"], "latency_ms": res["latency_ms"],
+                           "max_abs_err_vs_cpu": worst, "tol": SERVE_FAMILY_TOL,
+                           "step64_ms_median": step_ms[len(step_ms) // 2], "step64_ms_min": step_ms[0],
+                           "step64_ms_max": step_ms[-1]}
+        finally:
+            server.close()
+            replica.close()
     return out
 
 
@@ -3429,6 +3864,17 @@ def main() -> int:
     phase("ppo_cli", **run_ppo_cli("cuda"))
     torch.cuda.empty_cache()
 
+    # 9b. recurrent PPO (no kernel on this path): the update at the
+    # published config, the card against the CPU, then the CLI end to end
+    phase("rppo_training", card=smi, **run_rppo_training("cuda"))
+    phase("rppo_cli", card=smi, **run_rppo_cli("cuda"))
+    torch.cuda.empty_cache()
+
+    # 9c. the PPO, SAC and recurrent-PPO servers, replayed on the CPU
+    for family, row in run_serve_families("cuda").items():
+        phase("serve_families", family=family, card=smi, **row)
+    torch.cuda.empty_cache()
+
     # 10. DreamerV3 and SAC through the CLI on the device envs: the loops
     # reach the kernels (launches counted over each run)
     dv3_cli = run_dv3_cli("cuda")
@@ -3521,7 +3967,8 @@ def main() -> int:
         _kernel_entry("gru_sequence", "sheeprl_tpu_torch/csrc/seq_gru.cu", "sheeprl_tpu/ops/seq_gru.py:126",
                       {"training_decoupled": dec["launches"]["gru_sequence"], **cli_launches("gru_sequence")},
                       seq_row, seq_row["shape"],
-                      **{k: seq_row[k] for k in ("route", "route_by_shape", "max_abs_err_f64_by_shape", "f32_tol",
+                      seq_route=seq_row["route"],
+                      **{k: seq_row[k] for k in ("route_by_shape", "max_abs_err_f64_by_shape", "f32_tol",
                                                  "device_ops", "host_us", "per_step_us",
                                                  "fwd_bwd_ms", "plain_fwd_bwd_ms", "bound_cuda_cores_ms",
                                                  "device_ms_by_shape")}),

@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import sys
 import warnings
-from typing import Any, Dict, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -36,11 +37,13 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.utils import normalize_obs, prepare_obs, test
 from sheeprl_tpu_torch.algos.ppo.vtrace import vtrace
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.device.collect import FusedOnPolicyCollector
 from sheeprl_tpu_torch.optim import build_optimizer, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import check_loop_scope, fetch_metrics, gae, normalize_tensor, trainable_params
 
-__all__ = ["build_ppo_optimizer", "check_port_scope", "main", "make_update_fn"]
+__all__ = ["OnPolicyFamily", "PPO_FAMILY", "annealed_coefs", "build_ppo_optimizer", "check_port_scope", "main", "make_update_fn",
+           "run_on_policy"]
 
 def check_port_scope(runtime, cfg: Dict[str, Any], algo: str) -> None:
     """Raise for what the on-policy loops of the port do not run yet.  The
@@ -160,14 +163,44 @@ def make_update_fn(runtime, agent, tx, cfg: Dict[str, Any], obs_keys: Sequence[s
     return update
 
 
-def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kwargs) -> Dict[str, Any]:
-    """The coupled on-policy loop that PPO and A2C share on the device
-    backend; ``make_update(runtime, agent, tx, cfg, obs_keys)`` builds the
-    update and ``train_kwargs(iteration)`` gives its coefficients.
-    Returns the run's summary (log dir, last checkpoint, policy steps,
-    test reward)."""
+@dataclass(frozen=True)
+class OnPolicyFamily:
+    """What :func:`run_on_policy` builds for one family of agents: the
+    agent, its collector, its player and closing test, what its update
+    bootstraps from (``bootstrap(payload)``), and the checkpoint key of its
+    global batch setting with the per-rank ``algo`` key that key restores."""
+
+    build_agent: Callable
+    collector: Callable
+    make_player: Callable
+    test: Callable
+    bootstrap: Callable
+    batch_key: str
+    batch_cfg: str
+
+
+PPO_FAMILY = OnPolicyFamily(
+    build_agent=build_agent,
+    collector=FusedOnPolicyCollector,
+    make_player=lambda agent, runtime, cnn_keys: PPOPlayer(
+        agent, lambda obs: prepare_obs(obs, cnn_keys=cnn_keys, num_envs=1, device=runtime.device)
+    ),
+    test=test,
+    bootstrap=lambda payload: payload.next_obs,
+    batch_key="batch_size",
+    batch_cfg="per_rank_batch_size",
+)
+
+
+def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kwargs,
+                  family: OnPolicyFamily = PPO_FAMILY) -> Dict[str, Any]:
+    """The coupled on-policy loop that PPO, A2C and recurrent PPO share on
+    the device backend; ``make_update(runtime, agent, tx, cfg, obs_keys)``
+    builds the update, ``train_kwargs(iteration)`` gives its coefficients
+    and ``family`` the rest; the update takes the rollout and
+    ``family.bootstrap(payload)``.  Returns the run's summary (log dir, last
+    checkpoint, policy steps, test reward)."""
     from sheeprl_tpu_torch.config import instantiate
-    from sheeprl_tpu_torch.envs.device.collect import FusedOnPolicyCollector
     from sheeprl_tpu_torch.resilience.manager import CheckpointManager
     from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
     from sheeprl_tpu_torch.utils.convert import opt_state_from_tree, opt_state_to_tree, torch_to_flax
@@ -203,10 +236,11 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
         runtime.print("Encoder MLP keys:", mlp_keys)
     actions_dim, is_continuous = spaces.action_space_dims(envs.single_action_space)
 
-    agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space, state["agent"] if state else None)
+    agent = family.build_agent(runtime, actions_dim, is_continuous, cfg, observation_space,
+                               state["agent"] if state else None)
     tx = build_ppo_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, runtime.precision)
     opt_state = tx.init(trainable_params(agent)) if state is None else opt_state_from_tree(state["optimizer"], agent, tx)
-    player = PPOPlayer(agent, lambda obs: prepare_obs(obs, cnn_keys=cnn_keys, num_envs=1, device=runtime.device))
+    player = family.make_player(agent, runtime, cnn_keys)
     save_configs(cfg, log_dir)
 
     aggregator = None if MetricAggregator.disabled else instantiate(dict(cfg.metric.aggregator))
@@ -224,7 +258,7 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
     policy_steps_per_iter = int(cfg.env.num_envs * cfg.algo.rollout_steps * world_size)
     total_iters = cfg.algo.total_steps // policy_steps_per_iter if not cfg.dry_run else 1
     if state:
-        cfg.algo.per_rank_batch_size = state["batch_size"] // world_size
+        cfg.algo[family.batch_cfg] = state[family.batch_key] // world_size
     if cfg.metric.log_level > 0 and cfg.metric.log_every % policy_steps_per_iter != 0:
         warnings.warn(
             f"metric.log_every ({cfg.metric.log_every}) is not a multiple of "
@@ -233,12 +267,12 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
 
     ckpt_mgr = CheckpointManager(runtime, cfg, log_dir, last_checkpoint=last_checkpoint)
     update_fn = make_update(runtime, agent, tx, cfg, obs_keys)
-    collector = FusedOnPolicyCollector(
+    collector = family.collector(
         envs=envs, agent=agent, cfg=cfg, runtime=runtime, obs_keys=obs_keys, total_envs=total_envs,
         aggregator=aggregator, policy_step=policy_step,
     )
-    if state is not None and "env" in state:
-        collector.carry = _to_device(state["env"], runtime.device)
+    if state is not None:
+        collector.load_state_dict(state)
     if state is not None and "rng" in state:
         runtime.generator.set_state(torch.from_numpy(state["rng"]))
     metric_fetch_gate = MetricFetchGate(cfg.metric.get("fetch_every", 1))
@@ -249,7 +283,7 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
         policy_step = payload.policy_step_end
         coefs = train_kwargs(iter_num - 1, total_iters)
         with timer("Time/train_time", SumMetric, sync_on_compute=cfg.metric.sync_on_compute):
-            train_metrics = update_fn(opt_state, payload.data, payload.next_obs, **coefs)
+            train_metrics = update_fn(opt_state, payload.data, family.bootstrap(payload), **coefs)
         train_step += world_size
 
         if aggregator and not aggregator.disabled and metric_fetch_gate():
@@ -289,10 +323,10 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
                 "agent": torch_to_flax(agent),
                 "optimizer": opt_state_to_tree(opt_state, agent),
                 "iter_num": iter_num * world_size,
-                "batch_size": cfg.algo.per_rank_batch_size * world_size,
+                family.batch_key: cfg.algo[family.batch_cfg] * world_size,
                 "last_log": last_log,
                 "last_checkpoint": ckpt_mgr.last_checkpoint,
-                "env": collector.carry,
+                **collector.state_dict(),
                 "rng": runtime.generator.get_state(),
             },
         )
@@ -301,19 +335,13 @@ def run_on_policy(runtime, cfg: Dict[str, Any], algo: str, make_update, train_kw
     ckpt_mgr.close()
     test_rew = None
     if cfg.algo.run_test:
-        test_rew = test(player, runtime, cfg, log_dir)
+        test_rew = family.test(player, runtime, cfg, log_dir)
         if logger:
             logger.log_metrics({"Test/cumulative_reward": test_rew}, policy_step)
     if logger:
         logger.finalize()
     return {"log_dir": log_dir, "checkpoint": last_path, "policy_step": policy_step, "test_reward": test_rew,
             "iterations": total_iters - start_iter + 1}
-
-
-def _to_device(tree: Any, device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return torch.as_tensor(tree).to(device)
 
 
 def annealed(initial: float, anneal: bool, iteration: int, total_iters: int) -> float:
@@ -326,8 +354,10 @@ def annealed(initial: float, anneal: bool, iteration: int, total_iters: int) -> 
     return polynomial_decay(iteration, initial=float(initial), final=0.0, max_decay_steps=total_iters, power=1.0)
 
 
-@register_algorithm()
-def main(runtime, cfg: Dict[str, Any]):
+def annealed_coefs(cfg: Dict[str, Any]) -> Callable[[int, int], Dict[str, float]]:
+    """``coefs(done_iters, total_iters)``: the learning rate, clip and
+    entropy coefficients of PPO and recurrent PPO for an iteration, each
+    annealed as its ``algo.anneal_*`` flag says."""
     lr0 = float(cfg.algo.optimizer.get("learning_rate", cfg.algo.optimizer.get("lr", 1e-3)))
     clip0, ent0 = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
 
@@ -338,4 +368,9 @@ def main(runtime, cfg: Dict[str, Any]):
             "ent_coef": annealed(ent0, cfg.algo.anneal_ent_coef, done_iters, total_iters),
         }
 
-    return run_on_policy(runtime, cfg, "PPO", make_update_fn, coefs)
+    return coefs
+
+
+@register_algorithm()
+def main(runtime, cfg: Dict[str, Any]):
+    return run_on_policy(runtime, cfg, "PPO", make_update_fn, annealed_coefs(cfg))

@@ -16,6 +16,14 @@ front of it optax's
 ``weight_decay`` adds ``wd * p`` to the clipped gradient before Adam, as
 ``optax.add_decayed_weights`` chained in front does.
 
+``optax.adamw`` (recurrent PPO's optimizer) is :class:`AdamW`: the same
+moments and state, with the decay decoupled, added after the Adam scaling,
+
+    p = p - lr (u + wd p)
+
+behind the same clip (optax's ``scale_by_adam``, ``add_decayed_weights``,
+``scale_by_learning_rate`` chain; its default ``weight_decay`` is 1e-4).
+
 ``optax.rmsprop`` (A2C's optimizer) is :class:`RMSprop`, without
 centering or momentum (optax's default ``momentum=None``; 0 is the same
 update):
@@ -36,7 +44,7 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["Adam", "AdamState", "RMSprop", "RMSpropState", "build_optimizer", "finalize_optimizer", "global_norm"]
+__all__ = ["Adam", "AdamState", "AdamW", "RMSprop", "RMSpropState", "build_optimizer", "finalize_optimizer", "global_norm"]
 
 # the reference's torch argument names, mapped to optax's
 _RENAMES = {"lr": "learning_rate", "alpha": "decay"}
@@ -57,14 +65,20 @@ class AdamState:
     nu: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
-def _clip_and_decay(opt, params, keys, grads, norm):
-    """optax's ``clip_by_global_norm`` then ``add_decayed_weights``."""
+def _clip(opt, keys, grads, norm):
+    """optax's ``clip_by_global_norm``."""
     g = [grads[k] for k in keys]
     if opt.max_grad_norm is not None:
         norm = global_norm(g) if norm is None else norm
         scale = torch.where(norm < opt.max_grad_norm, torch.ones_like(norm), opt.max_grad_norm / norm)
         # (g / norm) * max_norm in optax; scaling by max/norm differs in the last ulp only
         g = torch._foreach_mul(g, scale)
+    return g
+
+
+def _clip_and_decay(opt, params, keys, grads, norm):
+    """optax's ``clip_by_global_norm`` then ``add_decayed_weights``."""
+    g = _clip(opt, keys, grads, norm)
     if opt.weight_decay:
         g = torch._foreach_add(g, [params[k] for k in keys], alpha=opt.weight_decay)
     return g
@@ -104,7 +118,12 @@ class Adam:
         """One step, in place on ``params`` and ``state``.  ``norm`` is the
         gradients' global norm when the caller has it already."""
         keys = list(params)
-        g = _clip_and_decay(self, params, keys, grads, norm)
+        step = self._scale(keys, _clip_and_decay(self, params, keys, grads, norm), state)
+        torch._foreach_add_([params[k] for k in keys], step, alpha=-self.learning_rate)
+
+    def _scale(self, keys, g, state: AdamState):
+        """optax's ``scale_by_adam`` of the gradients ``g``: the moments'
+        update (in place on ``state``) and the bias-corrected direction."""
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
         torch._foreach_mul_(mu, self.b1)
@@ -117,7 +136,32 @@ class Adam:
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(mu_hat, denom)
-        torch._foreach_add_([params[k] for k in keys], mu_hat, alpha=-self.learning_rate)
+        return mu_hat
+
+
+class AdamW(Adam):
+    """optax.adamw, optionally behind a global-norm clip: the decay is
+    added to the Adam direction, not to the gradient.  The learning rate
+    stays settable between steps (``learning_rate``), as optax's
+    ``inject_hyperparams`` has it in the JAX package.  :func:`build_optimizer`
+    gives it optax's default ``weight_decay`` of 1e-4 where the config
+    names none."""
+
+    @torch.no_grad()
+    def update(
+        self,
+        params: Dict[str, torch.Tensor],
+        grads: Dict[str, torch.Tensor],
+        state: AdamState,
+        norm: Optional[torch.Tensor] = None,
+    ) -> None:
+        """One step, in place on ``params`` and ``state``."""
+        keys = list(params)
+        weights = [params[k] for k in keys]
+        step = self._scale(keys, _clip(self, keys, grads, norm), state)
+        if self.weight_decay:
+            torch._foreach_add_(step, weights, alpha=self.weight_decay)
+        torch._foreach_add_(weights, step, alpha=-self.learning_rate)
 
 
 @dataclass
@@ -172,7 +216,7 @@ class RMSprop:
         torch._foreach_add_([params[k] for k in keys], scale, alpha=-self.learning_rate)
 
 
-_OPTIMIZERS = {"optax.adam": Adam, "optax.rmsprop": RMSprop}
+_OPTIMIZERS = {"optax.adam": Adam, "optax.adamw": AdamW, "optax.rmsprop": RMSprop}
 
 
 def finalize_optimizer(
@@ -189,8 +233,8 @@ def finalize_optimizer(
 
 def build_optimizer(optim_cfg: dict, max_grad_norm: Optional[float] = None, precision: str = "32-true"):
     """An optimizer from a ``_target_`` config node: ``optax.adam`` is the
-    port's :class:`Adam`, ``optax.rmsprop`` its :class:`RMSprop`; any other
-    target raises."""
+    port's :class:`Adam`, ``optax.adamw`` its :class:`AdamW`,
+    ``optax.rmsprop`` its :class:`RMSprop`; any other target raises."""
     cfg = dict(optim_cfg)
     target = cfg.pop("_target_")
     if target not in _OPTIMIZERS:
@@ -201,5 +245,6 @@ def build_optimizer(optim_cfg: dict, max_grad_norm: Optional[float] = None, prec
         kwargs["b1"], kwargs["b2"] = betas
     for k, v in cfg.items():
         kwargs[_RENAMES.get(k, k)] = float(v) if isinstance(v, str) else v
-    weight_decay = float(kwargs.pop("weight_decay", 0.0) or 0.0)
+    default_decay = 1e-4 if target == "optax.adamw" else 0.0
+    weight_decay = float(kwargs.pop("weight_decay", default_decay) or 0.0)
     return finalize_optimizer(kwargs, weight_decay, max_grad_norm, precision, _OPTIMIZERS[target])

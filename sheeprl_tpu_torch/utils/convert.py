@@ -19,9 +19,18 @@ modules, and the PPO/A2C state back.
   and A2C), the flax variables ``{"params": {"feature_extractor":
   {"mlp_encoder": {"MLP_0": ...}}, "critic", "actor_backbone",
   "actor_heads_<i>"}}``, each MLP's ``Dense_<i>`` (and ``LayerNorm_<i>``)
-  hidden layers and its ``Dense_<n>`` head.  :func:`torch_to_flax` is the
-  inverse, which the port's checkpoints write, so that the JAX package's
-  ``build_agent`` reads their ``"agent"``.
+  hidden layers and its ``Dense_<n>`` head;
+- for a :class:`~sheeprl_tpu_torch.algos.ppo_recurrent.agent.RecurrentPPOAgentModule`,
+  the same plus ``params/rnn``: ``Scan_ResetLSTMCell_0/OptimizedLSTMCell_0``
+  with the input kernels ``ii, if, ig, io`` (no bias) side by side as the
+  port's ``input_kernel`` (in, 4H), the recurrent kernels ``hi, hf, hg, ho``
+  as ``hidden_kernel`` (H, 4H) and their biases as ``hidden_bias`` (4H);
+  and the dense layers, ``MLP_0`` the pre-RNN one where it applies, else
+  the post-RNN one, ``MLP_1`` the post-RNN one when both apply.
+
+:func:`torch_to_flax` is the inverse for the PPO family, which the port's
+checkpoints write, so that the JAX package's ``build_agent`` reads their
+``"agent"``.
 
 Layouts:
 
@@ -57,6 +66,7 @@ __all__ = [
     "flax_to_torch",
     "group_to_flax",
     "load_flax_params",
+    "load_group_params",
     "moments_to_torch",
     "opt_state_from_tree",
     "opt_state_to_torch",
@@ -134,6 +144,10 @@ class _Mapper:
             self.linear_ln_act(f"{src}/LinearLnAct_{i}", f"{dst}.layers.{i}")
         if head:
             self.dense(f"{src}/Dense_0", f"{dst}.head")
+
+    def gates(self, srcs, dst: str) -> None:
+        """Flax's per-gate leaves ``srcs`` side by side on the last axis."""
+        self.put(dst, np.concatenate([self.take(src) for src in srcs], -1))
 
 
 def _encoder_rssm(m: _Mapper, wm, src: str, dst: str) -> None:
@@ -250,6 +264,14 @@ class _Inverse(_Mapper):
         self.flat[ref.path] = np.ascontiguousarray(arr)
         self.used.add(key)
 
+    def gates(self, srcs, dst: str) -> None:
+        if dst not in self.tensors:
+            return
+        arr = self.tensors[dst].detach().to("cpu", torch.float32).numpy()
+        for src, part in zip(srcs, np.split(arr, len(srcs), axis=-1)):
+            self.flat[src] = np.ascontiguousarray(part)
+        self.used.add(dst)
+
     def tree(self) -> Dict[str, Any]:
         unused = sorted(set(self.tensors) - self.used)
         if unused:
@@ -269,9 +291,26 @@ def _flax_mlp(m, src: str, dst: str, mlp: torch.nn.Module) -> None:
         m.dense(f"{src}/Dense_{n}", f"{dst}.head")
 
 
+_LSTM = "params/rnn/Scan_ResetLSTMCell_0/OptimizedLSTMCell_0"
+_GATES = "ifgo"  # flax's gate order, the port's column blocks
+
+
+def _rnn(m, rnn: torch.nn.Module) -> None:
+    """Recurrent PPO's ``RecurrentModel``: the LSTM's gate leaves and the
+    dense layers' ``MLP_<i>`` (numbered in the order flax creates them)."""
+    m.gates([f"{_LSTM}/i{g}/kernel" for g in _GATES], "rnn.lstm.input_kernel")
+    m.gates([f"{_LSTM}/h{g}/kernel" for g in _GATES], "rnn.lstm.hidden_kernel")
+    m.gates([f"{_LSTM}/h{g}/bias" for g in _GATES], "rnn.lstm.hidden_bias")
+    dense = [name for name in ("pre", "post") if getattr(rnn, name) is not None]
+    for i, name in enumerate(dense):
+        _flax_mlp(m, f"params/rnn/MLP_{i}", f"rnn.{name}", getattr(rnn, name))
+
+
 def _ppo(m, agent: torch.nn.Module) -> None:
     _flax_mlp(m, "params/feature_extractor/mlp_encoder/MLP_0", "feature_extractor.mlp_encoder.mlp",
               agent.feature_extractor.mlp_encoder.mlp)
+    if hasattr(agent, "rnn"):
+        _rnn(m, agent.rnn)
     _flax_mlp(m, "params/critic", "critic", agent.critic)
     _flax_mlp(m, "params/actor_backbone", "actor_backbone", agent.actor_backbone)
     for i in range(len(agent.actor_heads)):
@@ -430,6 +469,14 @@ def load_flax_params(agent: torch.nn.Module, tree: Dict[str, Any]) -> torch.nn.M
     """Convert ``tree`` and load it into ``agent`` (on the agent's device)."""
     agent.load_state_dict(flax_to_torch(tree, agent), strict=True)
     return agent
+
+
+def load_group_params(module: torch.nn.Module, tree: Dict[str, Any], group: str) -> torch.nn.Module:
+    """Load one group's flax tree (``"actor"``: a SAC or DreamerV3 actor;
+    ``"critic"``; ``"world_model"``) into ``module``, on its device."""
+    dev = next(module.parameters()).device
+    module.load_state_dict({k: v.to(dev) for k, v in _group_params(tree, module, group).items()}, strict=True)
+    return module
 
 
 def group_to_flax(tensors: Dict[str, torch.Tensor], module: torch.nn.Module, group: str) -> Dict[str, Any]:

@@ -21,6 +21,7 @@ algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
 ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "sheeprl_tpu_torch.algos.sac.sac",
 )
