@@ -50,7 +50,14 @@ random weights drawn from a seed):
   plain CPU player; SAC on Pendulum, about 30 dispatches of 64 x 256 with
   prioritized replay, then a resume.  Each run's kernel counts are set to
   0 just before it and read after it: every kernel its configuration
-  reaches must have launched.
+  reaches must have launched;
+- DroQ and Plan2Explore-DreamerV3 through the CLI: DroQ on Pendulum at its
+  published replay ratio 20 (80 critic steps a training iteration on the
+  prioritized cache), then a resume; P2E-DV3 exploration at DV3-S widths
+  with 8 ensemble members on GridWorld (fused, cached) and on CartPole
+  (decoupled, prioritized), the exploration player against the plain CPU
+  player, a resume, and finetuning from the GridWorld run's checkpoint,
+  which must switch the player to the task actor.
 
 Before the paths it checks the sum-tree kernels (sample, write, update) on a
 1,000,000-leaf tree, the per-shard descent and scatter on a 250,000-leaf
@@ -401,6 +408,30 @@ SAC_CLI_EXP = ["exp=sac", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_b
                "algo.dispatch_batch=64", "metric.log_level=0"]
 SAC_CLI_KERNELS = ("gather_transitions", "sum_tree_sample", "sum_tree_write", "sum_tree_update")
 SAC_CLI_DISPATCHES = 30
+# DroQ (exp=droq) on Pendulum at its published replay ratio 20, with SAC's
+# widths and batch and the env config's 4 envs: a training iteration is one
+# dispatch of 80 critic steps (#5 and #4 for their batches, #7 for their TD
+# errors), one uniform actor batch (#4) and one actor step; the cache's
+# rows go in every step (#6)
+DROQ_CLI_EXP = ["exp=droq", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax",
+                "algo.mlp_keys.encoder=[state]", "algo.hidden_size=256", "algo.per_rank_batch_size=256",
+                "env.num_envs=4", "buffer.device_cache=True", "buffer.prioritized=True", "buffer.per_kernel=pallas",
+                "metric.log_level=0"]
+DROQ_CLI_ITERS = 20
+# Plan2Explore-DreamerV3: exploration at DreamerV3-S widths with the MLP keys
+# of DV3_CLI_EXP and the published ensembles.n 8, on the two DV3 runs'
+# configurations (GridWorld with the fused GRU step and the device cache;
+# CartPole decoupled and prioritized), each about as deep as its
+# P2E_CLI_TRAIN_ITERS; then finetuning from the GridWorld run's checkpoint
+# exp=dreamer_v3 composes algo=dreamer_v3_S; the P2E exps compose algo=p2e_dv3 over XL's widths, so set S's
+DV3_S_WIDTHS = ["algo.dense_units=512", "algo.mlp_layers=2", "algo.world_model.recurrent_model.recurrent_state_size=512",
+                "algo.world_model.transition_model.hidden_size=512",
+                "algo.world_model.representation_model.hidden_size=512"]
+P2E_CLI_EXP = ["exp=p2e_dv3_exploration", *DV3_CLI_EXP[1:], *DV3_S_WIDTHS]
+P2E_FINETUNE_EXP = ["exp=p2e_dv3_finetuning", *DV3_CLI_EXP[1:]]
+P2E_CLI_TRAIN_ITERS = {"gridworld": 16, "cartpole": 8}
+P2E_FINETUNE_LEARNING_STARTS = 512
+P2E_FINETUNE_ITERS = 8
 # Each CLI configuration runs once more, short, for a torch.profiler window
 # over CLI_PROFILE_ITERS training calls after CLI_PROFILE_START warm ones,
 # so that the profiler's cost stays out of the measured run's rates.
@@ -3388,11 +3419,12 @@ def _resume_one(args, out: dict, per_iter: int, root: str, name: str) -> dict:
             "test_reward": resumed["test_reward"], "checkpoint": os.path.relpath(resumed["checkpoint"], root)}
 
 
-def dv3_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> dict:
-    """The checkpoint's player on ``device`` against the same player on the
-    CPU (plain versions): the same GridWorld observations (a CPU rollout of
-    4 envs) and the same Gumbel noise for 16 steps; the recurrent
-    states within STATE_TOL at every step, the greedy actions identical."""
+def dv3_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16, actor_key: str = "actor") -> dict:
+    """The checkpoint's player (its world model and the actor under
+    ``actor_key``) on ``device`` against the same player on the CPU (plain
+    versions): the same GridWorld observations (a CPU rollout of 4 envs)
+    and the same Gumbel noise for 16 steps; the recurrent states within
+    STATE_TOL at every step, the greedy actions identical."""
     import numpy as np
     import torch
 
@@ -3403,7 +3435,8 @@ def dv3_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> di
     from sheeprl_tpu_torch.utils.convert import load_flax_params
     from sheeprl_tpu_torch.utils.env import make_device_env_from_cfg
 
-    state = load_checkpoint(ckpt_path, select=("world_model", "actor"))
+    saved = load_checkpoint(ckpt_path, select=("world_model", actor_key))
+    state = {"world_model": saved["world_model"], "actor": saved[actor_key]}
     env = make_device_env_from_cfg(cfg)
     n = 4
     actions_dim = (env.action_space.n,)
@@ -3443,7 +3476,8 @@ def dv3_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> di
             if not np.isfinite(err) or err > STATE_TOL:
                 raise AssertionError(f"step {t}: recurrent states differ by {err} > {STATE_TOL}")
             obs = vec.step(acts["cpu"].numpy().reshape(n))[0]
-    return {"steps": steps, "envs": n, "max_abs_state_err": worst, "tol": STATE_TOL, "actions": "identical"}
+    return {"steps": steps, "envs": n, "actor": actor_key, "max_abs_state_err": worst, "tol": STATE_TOL,
+            "actions": "identical"}
 
 
 def run_dv3_cli(device: str, *, overrides=(), learning_starts: int = DV3_CLI_LEARNING_STARTS,
@@ -3522,6 +3556,113 @@ def run_sac_cli(device: str, *, overrides=(), dispatches: int = SAC_CLI_DISPATCH
             row["profile"] = _profiled_run(sac_mod, "train_dispatch", args, steps, "sac_pendulum_profiled")
         row["resumed"] = _resume_one(args, res, n, root, "sac_pendulum_resumed")
     return row
+
+
+def run_droq_cli(device: str, *, overrides=(), iters: int = DROQ_CLI_ITERS, profile: bool = True) -> dict:
+    """DroQ on Pendulum through ``sheeprl_tpu_torch.cli.run`` on ``device``:
+    ``iters`` training iterations after the warm-up (one dispatch each), the
+    loop rates, ms a training iteration, a profiled window of dispatches,
+    peak memory and the launches of #4-#7, a draw from the run's own cache
+    held against the plain versions; then a resume for one iteration."""
+    import tempfile
+
+    from sheeprl_tpu_torch.algos.droq import droq as droq_mod
+    from sheeprl_tpu_torch.config import compose
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    with tempfile.TemporaryDirectory(prefix="droq_cli_") as root:
+        args = [*DROQ_CLI_EXP, f"fabric.accelerator={accel}", f"root_dir={root}", "run_name=droq_pendulum", *overrides]
+        cfg = compose(overrides=args)
+        n = int(cfg.env.num_envs)
+        warm = int(cfg.algo.learning_starts) // n
+        window = _TrainWindow(droq_mod, "train_dispatch", 0, 0, False, check=_sac_draw_check)
+        res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={(warm + iters) * n}"], device, window)
+        if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
+            raise AssertionError(f"droq: no test reward or no final checkpoint: {res}")
+        _require_launches("droq", launches, SAC_CLI_KERNELS, device)
+        _require_checked("droq", window, SAC_CLI_KERNELS)
+        rates = _loop_rates(res, n, window)
+        row = {"env": cfg.env.id, "num_envs": n, "replay_ratio": float(cfg.algo.replay_ratio),
+               "dropout": float(cfg.algo.critic.dropout), "wall_s": wall, **rates, "dispatches": res["dispatches"],
+               "ms_per_training_iteration": 1e3 * res["training_s"] / max(1, rates["training_iterations"]),
+               "ms_per_dispatch": 1e3 * res["train_s"] / max(1, res["dispatches"]), "peak_memory_bytes": peak,
+               "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+               "test_reward": res["test_reward"]}
+        if profile and device != "cpu":
+            steps = (warm + CLI_PROFILE_START + CLI_PROFILE_ITERS + 2) * n
+            row["profile"] = _profiled_run(droq_mod, "train_dispatch", args, steps, "droq_pendulum_profiled")
+        row["resumed"] = _resume_one(args, res, n, root, "droq_pendulum_resumed")
+    return row
+
+
+def _p2e_finetune(root: str, ckpt: str, accel: str, device: str, overrides, learning_starts: int, iters: int) -> dict:
+    """P2E-DV3 finetuning from an exploration checkpoint on GridWorld: the
+    player acts with the exploration actor, then the task actor from the
+    first gradient step; the loop rates, launches (#1, #3) and a resume."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+
+    args = [*P2E_FINETUNE_EXP, *DV3_CLI_RUNS["gridworld"], f"fabric.accelerator={accel}", f"root_dir={root}",
+            "run_name=p2e_finetuning", f"checkpoint.exploration_ckpt_path={ckpt}",
+            f"algo.learning_starts={learning_starts}", *overrides]
+    n = int(compose(overrides=args).env.num_envs)
+    window = _TrainWindow(dv3, "train_steps", 0, 0, False, check=_dv3_draw_check)
+    res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={learning_starts + iters * n}"], device, window)
+    if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or "") or not res["actor_switched"]:
+        raise AssertionError(f"p2e finetuning: no test reward, no final checkpoint or no switch to the task actor: {res}")
+    _require_launches("p2e finetuning", launches, DV3_CLI_KERNELS["gridworld"], device)
+    _require_checked("p2e finetuning", window, DV3_CLI_KERNELS["gridworld"])
+    return {"wall_s": wall, **_loop_rates(res, n, window), "peak_memory_bytes": peak,
+            "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+            "actor_switched": res["actor_switched"], "test_reward": res["test_reward"],
+            "resumed": _resume_one(args, res, n, root, "p2e_finetuning_resumed")}
+
+
+def run_p2e_dv3_cli(device: str, *, overrides=(), learning_starts: int = DV3_CLI_LEARNING_STARTS,
+                    train_iters=None, finetune_starts: int = P2E_FINETUNE_LEARNING_STARTS,
+                    finetune_iters: int = P2E_FINETUNE_ITERS, profile: bool = True) -> dict:
+    """Plan2Explore-DreamerV3 through ``sheeprl_tpu_torch.cli.run`` on
+    ``device``: exploration on the two DV3 runs' configurations
+    (``learning_starts`` warm-up steps, then ``train_iters`` training
+    iterations), each with its loop rates, peak memory, its kernels'
+    launches and a draw from its own cache against the plain versions; the
+    GridWorld run profiled, resumed for one iteration, its checkpoint's
+    exploration player held against the plain CPU player, and finetuned."""
+    import tempfile
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+
+    train_iters = dict(P2E_CLI_TRAIN_ITERS, **(train_iters or {}))
+    accel = "cpu" if device == "cpu" else "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="p2e_cli_") as root:
+        for name, extra in DV3_CLI_RUNS.items():
+            args = [*P2E_CLI_EXP, *extra, f"fabric.accelerator={accel}", f"root_dir={root}", f"run_name=p2e_{name}",
+                    f"algo.learning_starts={learning_starts}", *overrides]
+            cfg = compose(overrides=args)
+            n = int(cfg.env.num_envs)
+            window = _TrainWindow(dv3, "train_steps", 0, 0, False, check=_dv3_draw_check)
+            total = learning_starts + train_iters[name] * n
+            res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={total}"], device, window)
+            if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
+                raise AssertionError(f"p2e {name}: no test reward or no final checkpoint: {res}")
+            _require_launches(f"p2e {name}", launches, DV3_CLI_KERNELS[name], device)
+            _require_checked(f"p2e {name}", window, DV3_CLI_KERNELS[name])
+            row = {"env": cfg.env.id, "num_envs": n, "ensembles": int(cfg.algo.ensembles.n), "wall_s": wall,
+                   **_loop_rates(res, n, window), "peak_memory_bytes": peak,
+                   "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+                   "test_reward": res["test_reward"]}
+            if name == "gridworld":
+                if profile and device != "cpu":
+                    steps = learning_starts + (CLI_PROFILE_START + CLI_PROFILE_ITERS + 3) * n
+                    row["profile"] = _profiled_run(dv3, "train_steps", args, steps, f"p2e_{name}_profiled")
+                row["resumed"] = _resume_one(args, res, n, root, f"p2e_{name}_resumed")
+                row["player_vs_plain"] = dv3_player_vs_plain(cfg, res["checkpoint"], device, actor_key="actor_exploration")
+                row["finetuning"] = _p2e_finetune(root, res["checkpoint"], accel, device, overrides, finetune_starts,
+                                                  finetune_iters)
+            out[name] = row
+    return out
 
 
 def mma_sync_peak(torch) -> dict:
@@ -3885,9 +4026,24 @@ def main() -> int:
     phase("sac_cli", card=smi, **sac_cli)
     torch.cuda.empty_cache()
 
+    # 10b. DroQ and Plan2Explore-DreamerV3 through the CLI: the prioritized
+    # transition kernels on DroQ's critic draws, the GRU step, the sequence
+    # GRU and the window gather on P2E's exploration and finetuning
+    droq_cli = run_droq_cli("cuda")
+    phase("droq_cli", card=smi, **droq_cli)
+    torch.cuda.empty_cache()
+    p2e_cli = run_p2e_dv3_cli("cuda")
+    for label, row in p2e_cli.items():
+        phase("p2e_dv3_cli", run=label, card=smi, **row)
+    torch.cuda.empty_cache()
+
     def cli_launches(name: str) -> dict:
         dv3 = sum(row["launches"].get(name, 0) for row in dv3_cli.values())
-        return {k: v for k, v in (("dv3_cli", dv3), ("sac_cli", sac_cli["launches"].get(name, 0))) if v}
+        p2e = sum(row["launches"].get(name, 0) for row in p2e_cli.values()) \
+            + p2e_cli["gridworld"]["finetuning"]["launches"].get(name, 0)
+        paths = (("dv3_cli", dv3), ("sac_cli", sac_cli["launches"].get(name, 0)),
+                 ("droq_cli", droq_cli["launches"].get(name, 0)), ("p2e_dv3_cli", p2e))
+        return {k: v for k, v in paths if v}
 
     # 11. purity
     bad = sorted(

@@ -59,7 +59,9 @@ __all__ = [
     "RSSM",
     "RecurrentModel",
     "WorldModel",
+    "build_actor",
     "build_agent",
+    "build_critic",
     "build_player",
     "compute_stochastic_state",
 ]
@@ -762,6 +764,10 @@ class DreamerAgent(nn.Module):
         wm = self.world_model
         return DreamerPlayer(WorldModel(wm.encoder, wm.rssm), self.actor)
 
+    def target_pairs(self):
+        """Every (target, online) critic pair that the training block's EMA updates."""
+        return [(self.target_critic, self.critic)]
+
 
 class PlayerDV3:
     """Stateful env-interaction wrapper: carries per-env (actions,
@@ -834,7 +840,6 @@ class PlayerDV3:
 def _player_modules(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space):
     """Encoder, RSSM and actor, and the sizes the rest of the agent needs."""
     wm_cfg = cfg.algo.world_model
-    actor_cfg = cfg.algo.actor
     device = runtime.device
     dtype = runtime.compute_dtype
 
@@ -895,8 +900,18 @@ def _player_modules(runtime, actions_dim: Sequence[int], is_continuous: bool, cf
         dtype=dtype,
         device=device,
     )
-    actor = Actor(
-        latent_state_size=stoch_flat + recurrent_state_size,
+    actor = build_actor(runtime, actions_dim, is_continuous, cfg)
+    sizes = {"latent": stoch_flat + recurrent_state_size, "cnn_out": cnn_out, "cnn_stages": cnn_stages}
+    return encoder, rssm, actor, sizes
+
+
+def build_actor(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
+    """The actor of ``cfg.algo.actor`` on ``runtime.device``, initialised from the torch RNG."""
+    wm_cfg = cfg.algo.world_model
+    actor_cfg = cfg.algo.actor
+    latent = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
+    return Actor(
+        latent_state_size=latent,
         actions_dim=tuple(actions_dim),
         is_continuous=is_continuous,
         distribution=cfg.distribution.get("type", "auto"),
@@ -909,11 +924,20 @@ def _player_modules(runtime, actions_dim: Sequence[int], is_continuous: bool, cf
         eps=_ln_eps(actor_cfg.layer_norm),
         unimix=float(cfg.algo.unimix),
         action_clip=float(actor_cfg.action_clip),
-        dtype=dtype,
-        device=device,
+        dtype=runtime.compute_dtype,
+        device=runtime.device,
     )
-    sizes = {"latent": stoch_flat + recurrent_state_size, "cnn_out": cnn_out, "cnn_stages": cnn_stages}
-    return encoder, rssm, actor, sizes
+
+
+def build_critic(runtime, cfg) -> DreamerMLP:
+    """A critic of ``cfg.algo.critic`` (two-hot bins, a zero head) on ``runtime.device``."""
+    wm_cfg = cfg.algo.world_model
+    node = cfg.algo.critic
+    latent = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
+    return DreamerMLP(
+        latent, int(node.dense_units), int(node.mlp_layers), int(node.bins), _ln_enabled(node.layer_norm),
+        _ln_eps(node.layer_norm), "silu", runtime.compute_dtype, runtime.device, out_init="zeros",
+    )
 
 
 def build_player(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space) -> DreamerPlayer:
@@ -932,7 +956,6 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     and a target critic that starts as a copy of the critic, on
     ``runtime.device`` and initialised from the torch RNG."""
     wm_cfg = cfg.algo.world_model
-    critic_cfg = cfg.algo.critic
     device = runtime.device
     dtype = runtime.compute_dtype
     encoder, rssm, actor, sizes = _player_modules(runtime, actions_dim, is_continuous, cfg, obs_space)
@@ -980,6 +1003,6 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
 
     reward_model = head(wm_cfg.reward_model, int(wm_cfg.reward_model.bins), "zeros")
     continue_model = head(wm_cfg.discount_model, 1, "uniform")
-    critic = head(critic_cfg, int(critic_cfg.bins), "zeros")
+    critic = build_critic(runtime, cfg)
     world_model = WorldModel(encoder, rssm, MultiDecoderDV3(cnn_decoder, mlp_decoder), reward_model, continue_model)
     return DreamerAgent(world_model, actor, critic, copy.deepcopy(critic))

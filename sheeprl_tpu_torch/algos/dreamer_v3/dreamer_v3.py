@@ -2,7 +2,10 @@
 ``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``).
 
 :func:`make_train_fn` builds the gradient step of ``make_train_fn``
-(``dreamer_v3.py:171-626``): the world-model loss over a dynamic scan of
+(``dreamer_v3.py:171-626``) from parts that Plan2Explore's step shares
+(:func:`world_model_loss`, :func:`imagine`, :func:`normalised_advantage`,
+:func:`policy_loss`, :func:`critic_update`, and :func:`behaviour_step`,
+which is the last three steps below): the world-model loss over a dynamic scan of
 the RSSM (with ``decoupled_rssm``: the posteriors from the observations
 alone, then the recurrent states in one :func:`~sheeprl_tpu_torch.ops.seq_gru.gru_sequence`
 where ``RSSM.seq_scan_eligible`` allows, else a loop of gated GRU steps),
@@ -16,8 +19,9 @@ Parameters and optimizer states are updated in place.
 gradient step, the target critic's EMA (tau = 1 on the very first), then
 the step, on batches from :func:`~sheeprl_tpu_torch.data.device_buffer.sequence_batches`.
 
-:func:`main` is the env loop (``dreamer_v3.py:634-1049``) on the port's
-stepping device vector env: random warm-up actions until
+:func:`main` is the env loop (``dreamer_v3.py:634-1049``),
+:func:`run_dreamer`, which Plan2Explore's two phases share through their
+own :class:`DreamerFamily`, on the port's stepping device vector env: random warm-up actions until
 ``learning_starts``, then the player's; every step's row and, where an
 episode ended, a reset row into an ``EnvIndependentReplayBuffer`` of
 ``SequentialReplayBuffer``s and its device cache; ``Ratio``-granted
@@ -64,7 +68,35 @@ from sheeprl_tpu_torch.utils.utils import ema_
 from sheeprl_tpu_torch.utils.utils import grads_or_zeros as _grads
 from sheeprl_tpu_torch.utils.utils import trainable_params as _trainable
 
-__all__ = ["TrainState", "draw_noise", "ema_", "main", "make_train_fn", "make_train_state", "train_steps"]
+__all__ = [
+    "DV3_FAMILY",
+    "DreamerFamily",
+    "DreamerRun",
+    "StepConfig",
+    "TrainState",
+    "behaviour_step",
+    "continues_and_discount",
+    "critic_update",
+    "draw_noise",
+    "ema_",
+    "imagination_noise",
+    "imagination_starts",
+    "imagine",
+    "lambda_returns",
+    "main",
+    "make_train_fn",
+    "make_train_state",
+    "normalised_advantage",
+    "policy_loss",
+    "prepare_batch",
+    "resume_state",
+    "run_dreamer",
+    "step_",
+    "step_config",
+    "train_steps",
+    "world_model_loss",
+    "world_model_metrics",
+]
 
 
 def draw_noise(
@@ -72,15 +104,327 @@ def draw_noise(
 ) -> Dict[str, torch.Tensor]:
     """Every draw of one train step: {"dyn", "img", "act"} (module docstring)."""
     wm_cfg = cfg.algo.world_model
-    s, d = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
-    horizon, rows = int(cfg.algo.horizon), seq_len * batch_size
+    like = torch.empty((), device=device)
+    dyn = gumbel_noise((seq_len, batch_size, int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)), like=like,
+                       generator=generator)
+    return {"dyn": dyn, **imagination_noise(cfg, seq_len * batch_size, actions_dim, is_continuous, device=device,
+                                            generator=generator)}
+
+
+def imagination_noise(cfg, rows: int, actions_dim: Sequence[int], is_continuous: bool, *, device,
+                      generator=None) -> Dict[str, torch.Tensor]:
+    """The draws of one imagination from ``rows`` starts: {"img", "act"}
+    (module docstring)."""
+    wm_cfg = cfg.algo.world_model
+    horizon = int(cfg.algo.horizon)
     like = torch.empty((), device=device)
     draw = normal_noise if is_continuous else gumbel_noise
     return {
-        "dyn": gumbel_noise((seq_len, batch_size, s, d), like=like, generator=generator),
-        "img": gumbel_noise((horizon, rows, s, d), like=like, generator=generator),
+        "img": gumbel_noise((horizon, rows, int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)), like=like,
+                            generator=generator),
         "act": draw((horizon + 1, rows, int(np.sum(actions_dim))), like=like, generator=generator),
     }
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    """The constants of a DreamerV3 gradient step, read from ``cfg`` once."""
+
+    cnn_keys: tuple
+    mlp_keys: tuple
+    cnn_keys_dec: tuple
+    mlp_keys_dec: tuple
+    stochastic_size: int
+    discrete_size: int
+    recurrent_state_size: int
+    horizon: int
+    gamma: float
+    lmbda: float
+    ent_coef: float
+    kl: dict
+    moments: tuple  # decay, max, percentile low, percentile high
+    decoupled: bool
+    compute_dtype: torch.dtype
+    is_continuous: bool
+    splits: tuple
+
+    @property
+    def stoch_state_size(self) -> int:
+        return self.stochastic_size * self.discrete_size
+
+
+def step_config(runtime, cfg, is_continuous: bool, actions_dim) -> StepConfig:
+    wm_cfg = cfg.algo.world_model
+    moments_cfg = cfg.algo.actor.moments
+    return StepConfig(
+        cnn_keys=tuple(cfg.algo.cnn_keys.encoder),
+        mlp_keys=tuple(cfg.algo.mlp_keys.encoder),
+        cnn_keys_dec=tuple(cfg.algo.cnn_keys.decoder),
+        mlp_keys_dec=tuple(cfg.algo.mlp_keys.decoder),
+        stochastic_size=int(wm_cfg.stochastic_size),
+        discrete_size=int(wm_cfg.discrete_size),
+        recurrent_state_size=int(wm_cfg.recurrent_model.recurrent_state_size),
+        horizon=int(cfg.algo.horizon),
+        gamma=float(cfg.algo.gamma),
+        lmbda=float(cfg.algo.lmbda),
+        ent_coef=float(cfg.algo.actor.ent_coef),
+        kl=dict(
+            kl_dynamic=float(wm_cfg.kl_dynamic),
+            kl_representation=float(wm_cfg.kl_representation),
+            kl_free_nats=float(wm_cfg.kl_free_nats),
+            kl_regularizer=float(wm_cfg.kl_regularizer),
+            continue_scale_factor=float(wm_cfg.continue_scale_factor),
+        ),
+        moments=(float(moments_cfg.decay), float(moments_cfg.max), float(moments_cfg.percentile.low),
+                 float(moments_cfg.percentile.high)),
+        decoupled=bool(wm_cfg.decoupled_rssm),
+        compute_dtype=runtime.compute_dtype,
+        is_continuous=bool(is_continuous),
+        splits=tuple(int(c) for c in np.cumsum(actions_dim)[:-1]),
+    )
+
+
+def prepare_batch(sc: StepConfig, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The step's inputs from a (T, B) batch: the observations (images to
+    [-0.5, 0.5)), ``is_first`` with its first row set, the previous actions
+    (a_t in the buffer acted after o_t; the RSSM input at t is the previous
+    action), the rewards and the terminations."""
+    batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in sc.cnn_keys}
+    batch_obs.update({k: data[k].float() for k in sc.mlp_keys})
+    is_first = data["is_first"].float().clone()
+    is_first[0] = 1.0
+    actions = data["actions"].float()
+    return {
+        "obs": batch_obs,
+        "is_first": is_first,
+        "actions": actions,
+        "prev_actions": torch.cat([torch.zeros_like(actions[:1]), actions[:-1]], 0),
+        "rewards": data["rewards"].float(),
+        "terminated": data["terminated"].float(),
+    }
+
+
+def world_model_loss(sc: StepConfig, wm, batch: Dict[str, torch.Tensor], dyn_noise: torch.Tensor,
+                     detach_heads: bool = False):
+    """The world model's loss over a (T, B) batch (``dreamer_v3.py`` world
+    model block): the dynamic scan of the RSSM (with ``decoupled_rssm`` the
+    posteriors from the observations alone, then the recurrent states in
+    one ``gru_sequence`` where ``RSSM.seq_scan_eligible`` allows, else a
+    loop of gated GRU steps), the priors, the reconstruction, reward and
+    continue heads and the KL terms.  ``detach_heads``: the reward and
+    continue heads read detached latents (Plan2Explore's exploration
+    phase).  -> ``(loss, aux)``, ``aux`` the posteriors, recurrent states,
+    both logits and the loss terms."""
+    rssm = wm.rssm
+    T, B = batch["rewards"].shape[:2]
+    device = batch["rewards"].device
+    batch_obs, is_first, batch_actions = batch["obs"], batch["is_first"], batch["prev_actions"]
+    enc_obs = {k: batch_obs[k].to(sc.compute_dtype) for k in sc.cnn_keys}
+    enc_obs.update({k: batch_obs[k] for k in sc.mlp_keys})
+    embedded_obs = wm.encoder(enc_obs)  # (T, B, E)
+    init_rec, init_post = rssm.get_initial_states((B,))
+    init_states = (init_rec, init_post.reshape(B, -1))
+    if sc.decoupled:
+        # the posteriors depend on the observations alone: all of them up
+        # front, then the recurrent model on the previous posteriors, its
+        # input projection batched over the sequence and only the GRU
+        # sequential
+        posteriors_logits, posteriors = rssm._representation(embedded_obs, None, noise=dyn_noise)
+        prev_posteriors = torch.cat([torch.zeros_like(posteriors[:1]), posteriors[:-1]], 0)
+        feats = rssm.recurrent_features_seq(prev_posteriors, batch_actions, is_first, init_states[1])
+        if rssm.seq_scan_eligible(int(feats.shape[-1])):
+            recurrent_states = rssm.gru_sequence_gated(feats, is_first, init_states[0])
+        else:
+            recurrent_state = torch.zeros(B, sc.recurrent_state_size, device=device)
+            recs = []
+            for t in range(T):
+                recurrent_state = rssm.gru_step_gated(feats[t], recurrent_state, is_first[t], init_states[0])
+                recs.append(recurrent_state)
+            recurrent_states = torch.stack(recs)
+    else:
+        emb_proj = rssm.representation_embed_proj(embedded_obs)
+        posterior = torch.zeros(B, sc.stochastic_size, sc.discrete_size, device=device)
+        recurrent_state = torch.zeros(B, sc.recurrent_state_size, device=device)
+        recs, posts, post_logits = [], [], []
+        for t in range(T):
+            recurrent_state, posterior, logits = rssm.dynamic_posterior(
+                posterior, recurrent_state, batch_actions[t], emb_proj[t], is_first[t], init_states,
+                noise=dyn_noise[t],
+            )
+            recs.append(recurrent_state)
+            posts.append(posterior)
+            post_logits.append(logits)
+        recurrent_states = torch.stack(recs)
+        posteriors = torch.stack(posts)  # (T, B, S, D)
+        posteriors_logits = torch.stack(post_logits)
+    priors_logits, _ = rssm._transition(recurrent_states, sample_state=False)
+    latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], -1)
+    reconstructed = wm.observation_model(latent_states)
+    po = {k: MSEDistribution(reconstructed[k], dims=reconstructed[k].dim() - 2) for k in sc.cnn_keys_dec}
+    po.update({k: SymlogDistribution(reconstructed[k], dims=reconstructed[k].dim() - 2) for k in sc.mlp_keys_dec})
+    head_in = latent_states.detach() if detach_heads else latent_states
+    pr = TwoHotEncodingDistribution(wm.reward_model(head_in), dims=1)
+    pc = Independent(BernoulliSafeMode(logits=wm.continue_model(head_in)), 1)
+    pl = priors_logits.reshape(T, B, sc.stochastic_size, sc.discrete_size)
+    psl = posteriors_logits.reshape(T, B, sc.stochastic_size, sc.discrete_size)
+    rec_loss, kl_value, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+        po, batch_obs, pr, batch["rewards"], pl, psl, pc=pc, continue_targets=1 - batch["terminated"], **sc.kl
+    )
+    aux = {
+        "posteriors": posteriors, "recurrent_states": recurrent_states, "posteriors_logits": psl,
+        "priors_logits": pl, "kl": kl_value, "state_loss": state_loss, "reward_loss": reward_loss,
+        "observation_loss": observation_loss, "continue_loss": continue_loss,
+    }
+    return rec_loss, aux
+
+
+def world_model_metrics(rec_loss: torch.Tensor, aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The world model's entries of the step's metrics."""
+    with torch.no_grad():
+        post_ent = Independent(OneHotCategorical(logits=aux["posteriors_logits"].detach()), 1).entropy().mean()
+        prior_ent = Independent(OneHotCategorical(logits=aux["priors_logits"].detach()), 1).entropy().mean()
+    return {
+        "Loss/world_model_loss": rec_loss.detach(),
+        "Loss/observation_loss": aux["observation_loss"].detach(),
+        "Loss/reward_loss": aux["reward_loss"].detach(),
+        "Loss/state_loss": aux["state_loss"].detach(),
+        "Loss/continue_loss": aux["continue_loss"].detach(),
+        "State/kl": aux["kl"].detach(),
+        "State/post_entropy": post_ent,
+        "State/prior_entropy": prior_ent,
+    }
+
+
+def imagination_starts(sc: StepConfig, aux: Dict[str, torch.Tensor], terminated: torch.Tensor):
+    """The detached (T, B) posteriors and recurrent states flattened B-major
+    (row r = b * T + t) as imagination's starts, and the true continues
+    (1, T * B, 1)."""
+    T, B = terminated.shape[:2]
+    imagined_prior = aux["posteriors"].detach().transpose(0, 1).reshape(T * B, sc.stoch_state_size)
+    recurrent_state = aux["recurrent_states"].detach().transpose(0, 1).reshape(T * B, sc.recurrent_state_size)
+    true_continue = (1 - terminated).transpose(0, 1).reshape(1, T * B, 1)
+    return imagined_prior, recurrent_state, true_continue
+
+
+def imagine(sc: StepConfig, rssm, actor, imagined_prior: torch.Tensor, recurrent_state: torch.Tensor,
+            img_noise: torch.Tensor, act_noise: torch.Tensor):
+    """``horizon`` imagined steps from the starts, each action drawn from
+    ``actor`` on the detached latent (``_imagine``): -> the trajectories
+    (H + 1, T*B, L) and the actions (H + 1, T*B, A).  The caller decides
+    whether autograd records it."""
+    latent0 = torch.cat([imagined_prior, recurrent_state], -1).to(sc.compute_dtype)
+    acts, _ = actor(latent0.detach(), False, noise=act_noise[0])
+    action = torch.cat(acts, -1)
+    latents, imagined_actions = [latent0], [action]
+    for i in range(sc.horizon):
+        imagined_prior, recurrent_state = rssm.imagination(imagined_prior, recurrent_state, action, noise=img_noise[i])
+        imagined_prior = imagined_prior.reshape(-1, sc.stoch_state_size)
+        latent = torch.cat([imagined_prior, recurrent_state], -1)
+        acts, _ = actor(latent.detach(), False, noise=act_noise[i + 1])
+        action = torch.cat(acts, -1)
+        latents.append(latent.to(sc.compute_dtype))
+        imagined_actions.append(action)
+    return torch.stack(latents), torch.stack(imagined_actions)
+
+
+def continues_and_discount(sc: StepConfig, wm, traj: torch.Tensor, true_continue: torch.Tensor):
+    """The continue head's mode on the trajectories with the true continues
+    in the first row, and the discount ``cumprod(continues * gamma) / gamma``
+    (detached)."""
+    continues = Independent(BernoulliSafeMode(logits=wm.continue_model(traj)), 1).mode
+    continues = torch.cat([true_continue, continues[1:]], 0)
+    discount = (torch.cumprod(continues * sc.gamma, 0) / sc.gamma).detach()
+    return continues, discount
+
+
+def lambda_returns(sc: StepConfig, rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor) -> torch.Tensor:
+    return compute_lambda_values(rewards[1:], values[1:], continues[1:] * sc.gamma, sc.lmbda)
+
+
+def normalised_advantage(sc: StepConfig, moments: Dict[str, torch.Tensor], lambda_vals: torch.Tensor,
+                         baseline: torch.Tensor):
+    """The Moments update on the lambda returns and the normalised
+    advantage against ``baseline``: -> ``(new_moments, advantage)``."""
+    new_moments, offset, invscale = update_moments(moments, lambda_vals, *sc.moments)
+    return new_moments, (lambda_vals - offset) / invscale - (baseline - offset) / invscale
+
+
+def policy_loss(sc: StepConfig, actor, traj: torch.Tensor, imagined_actions: torch.Tensor, advantage: torch.Tensor,
+                discount: torch.Tensor) -> torch.Tensor:
+    """The actor's objective on the trajectories (``_policy_objective``):
+    the advantage itself for continuous actions (it carries the gradient
+    through the dynamics), else the log-probs of the detached actions
+    times the detached advantage; plus the entropy bonus, discounted."""
+    _, policies = actor(traj.detach(), True)
+    if sc.is_continuous:
+        objective = advantage
+    else:
+        sub_actions = torch.tensor_split(imagined_actions, list(sc.splits), -1)
+        logps = torch.stack(
+            [p.log_prob(a.detach())[:-1][..., None] for p, a in zip(policies, sub_actions)], -1
+        ).sum(-1)
+        objective = logps * advantage.detach()
+    try:
+        entropy = sc.ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
+    except (AttributeError, NotImplementedError):  # a distribution without entropy
+        entropy = torch.zeros(traj.shape[:2], device=traj.device)
+    return -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
+
+
+def critic_update(critic, target_critic, tx, opt_state, traj: torch.Tensor, lambda_vals: torch.Tensor,
+                  discount: torch.Tensor, params: Dict[str, torch.Tensor]):
+    """One step of ``params`` (the critic's) against the lambda returns and
+    its target's values on the detached trajectories (``_critic_update``):
+    -> ``(loss, grad norm)``."""
+    traj = traj.detach()[:-1]
+    lambda_vals = lambda_vals.detach()
+    qv = TwoHotEncodingDistribution(critic(traj), dims=1)
+    with torch.no_grad():
+        predicted_target_values = TwoHotEncodingDistribution(target_critic(traj), dims=1).mean
+    value_loss = -qv.log_prob(lambda_vals) - qv.log_prob(predicted_target_values)
+    value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
+    grads = _grads(value_loss, params)
+    norm = global_norm(grads.values())
+    tx.update(params, grads, opt_state, norm=norm)
+    return value_loss.detach(), norm
+
+
+def step_(tx, params: Dict[str, torch.Tensor], loss: torch.Tensor, opt_state) -> torch.Tensor:
+    """One optimizer step of ``params`` on ``loss``: -> the gradients' global norm."""
+    grads = _grads(loss, params)
+    norm = global_norm(grads.values())
+    tx.update(params, grads, opt_state, norm=norm)
+    return norm
+
+
+def behaviour_step(sc: StepConfig, agent: DreamerAgent, txs, opt_states, params, moments: Dict[str, torch.Tensor],
+                   starts, img_noise: torch.Tensor, act_noise: torch.Tensor):
+    """The task behaviour of one gradient step: imagination from ``starts``
+    (:func:`imagination_starts`) through the updated world model with
+    ``agent.actor``, one actor step against the Moments-normalised lambda
+    returns of ``agent.critic``, one critic step.  ``txs``, ``opt_states``
+    and ``params`` hold the groups ``actor`` and ``critic``.  -> ``(new
+    moments, policy loss, value loss, actor grad norm, critic grad norm)``."""
+    wm, actor, critic = agent.world_model, agent.actor, agent.critic
+    imagined_prior, recurrent_state, true_continue = starts
+    # with discrete actions nothing differentiable flows through the
+    # rollout (the objective is logp * sg(advantage)): build no graph
+    with torch.set_grad_enabled(sc.is_continuous):
+        traj, imagined_actions = imagine(sc, wm.rssm, actor, imagined_prior, recurrent_state, img_noise, act_noise)
+        predicted_values = TwoHotEncodingDistribution(critic(traj), dims=1).mean
+        predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(traj), dims=1).mean
+        continues, discount = continues_and_discount(sc, wm, traj, true_continue)
+        lambda_vals = lambda_returns(sc, predicted_rewards, predicted_values, continues)
+
+    # ------------------------------------------------ actor
+    new_moments, advantage = normalised_advantage(sc, moments, lambda_vals, predicted_values[:-1])
+    loss = policy_loss(sc, actor, traj, imagined_actions, advantage, discount)
+    actor_norm = step_(txs["actor"], params["actor"], loss, opt_states["actor"])
+
+    # ------------------------------------------------ critic
+    value_loss, critic_norm = critic_update(critic, agent.target_critic, txs["critic"], opt_states["critic"], traj,
+                                            lambda_vals, discount, params["critic"])
+    return new_moments, loss.detach(), value_loss, actor_norm, critic_norm
 
 
 def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_continuous: bool, actions_dim):
@@ -88,185 +432,30 @@ def make_train_fn(runtime, agent: DreamerAgent, txs: Dict[str, Adam], cfg, is_co
     generator=None) -> (opt_states, moments, metrics)``, ``data`` a dict of
     (T, B, *) tensors on the agent's device, ``metrics`` the JAX step's
     dict of 0-d tensors (nothing is copied to the host)."""
-    wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
-    rssm = wm.rssm
-    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
-    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
-    cnn_keys_dec = tuple(cfg.algo.cnn_keys.decoder)
-    mlp_keys_dec = tuple(cfg.algo.mlp_keys.decoder)
-    wm_cfg = cfg.algo.world_model
-    stochastic_size, discrete_size = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
-    stoch_state_size = stochastic_size * discrete_size
-    recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
-    gamma, lmbda = float(cfg.algo.gamma), float(cfg.algo.lmbda)
-    ent_coef = float(cfg.algo.actor.ent_coef)
-    kl = dict(
-        kl_dynamic=float(wm_cfg.kl_dynamic),
-        kl_representation=float(wm_cfg.kl_representation),
-        kl_free_nats=float(wm_cfg.kl_free_nats),
-        kl_regularizer=float(wm_cfg.kl_regularizer),
-        continue_scale_factor=float(wm_cfg.continue_scale_factor),
-    )
-    moments_cfg = cfg.algo.actor.moments
-    decoupled = bool(wm_cfg.decoupled_rssm)
-    compute_dtype = runtime.compute_dtype
-    splits = [int(c) for c in np.cumsum(actions_dim)[:-1]]
-    wm_params, actor_params, critic_params = _trainable(wm), _trainable(actor), _trainable(critic)
+    wm = agent.world_model
+    sc = step_config(runtime, cfg, is_continuous, actions_dim)
+    params = {"world_model": _trainable(wm), "actor": _trainable(agent.actor), "critic": _trainable(agent.critic)}
 
     def train(opt_states: Dict[str, AdamState], moments: Dict[str, torch.Tensor], data, noise=None, generator=None):
         T, B = data["rewards"].shape[:2]
-        device = data["rewards"].device
         if noise is None:
-            noise = draw_noise(cfg, T, B, actions_dim, is_continuous, device=device, generator=generator)
-        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
-        batch_obs.update({k: data[k].float() for k in mlp_keys})
-        is_first = data["is_first"].float().clone()
-        is_first[0] = 1.0
-        # a_t in the buffer acted after o_t; the RSSM input at t is the previous action
-        actions = data["actions"].float()
-        batch_actions = torch.cat([torch.zeros_like(actions[:1]), actions[:-1]], 0)
-        rewards = data["rewards"].float()
-        terminated = data["terminated"].float()
+            noise = draw_noise(cfg, T, B, actions_dim, is_continuous, device=data["rewards"].device, generator=generator)
+        batch = prepare_batch(sc, data)
 
         # ------------------------------------------------ world model
-        enc_obs = {k: batch_obs[k].to(compute_dtype) for k in cnn_keys}
-        enc_obs.update({k: batch_obs[k] for k in mlp_keys})
-        embedded_obs = wm.encoder(enc_obs)  # (T, B, E)
-        init_rec, init_post = rssm.get_initial_states((B,))
-        init_states = (init_rec, init_post.reshape(B, -1))
-        if decoupled:
-            # the posteriors depend on the observations alone: all of them up
-            # front, then the recurrent model on the previous posteriors, its
-            # input projection batched over the sequence and only the GRU
-            # sequential
-            posteriors_logits, posteriors = rssm._representation(embedded_obs, None, noise=noise["dyn"])
-            prev_posteriors = torch.cat([torch.zeros_like(posteriors[:1]), posteriors[:-1]], 0)
-            feats = rssm.recurrent_features_seq(prev_posteriors, batch_actions, is_first, init_states[1])
-            if rssm.seq_scan_eligible(int(feats.shape[-1])):
-                recurrent_states = rssm.gru_sequence_gated(feats, is_first, init_states[0])
-            else:
-                recurrent_state = torch.zeros(B, recurrent_state_size, device=device)
-                recs = []
-                for t in range(T):
-                    recurrent_state = rssm.gru_step_gated(feats[t], recurrent_state, is_first[t], init_states[0])
-                    recs.append(recurrent_state)
-                recurrent_states = torch.stack(recs)
-        else:
-            emb_proj = rssm.representation_embed_proj(embedded_obs)
-            posterior = torch.zeros(B, stochastic_size, discrete_size, device=device)
-            recurrent_state = torch.zeros(B, recurrent_state_size, device=device)
-            recs, posts, post_logits = [], [], []
-            for t in range(T):
-                recurrent_state, posterior, logits = rssm.dynamic_posterior(
-                    posterior, recurrent_state, batch_actions[t], emb_proj[t], is_first[t], init_states,
-                    noise=noise["dyn"][t],
-                )
-                recs.append(recurrent_state)
-                posts.append(posterior)
-                post_logits.append(logits)
-            recurrent_states = torch.stack(recs)
-            posteriors = torch.stack(posts)  # (T, B, S, D)
-            posteriors_logits = torch.stack(post_logits)
-        priors_logits, _ = rssm._transition(recurrent_states, sample_state=False)
-        latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], -1)
-        reconstructed = wm.observation_model(latent_states)
-        po = {k: MSEDistribution(reconstructed[k], dims=reconstructed[k].dim() - 2) for k in cnn_keys_dec}
-        po.update({k: SymlogDistribution(reconstructed[k], dims=reconstructed[k].dim() - 2) for k in mlp_keys_dec})
-        pr = TwoHotEncodingDistribution(wm.reward_model(latent_states), dims=1)
-        pc = Independent(BernoulliSafeMode(logits=wm.continue_model(latent_states)), 1)
-        pl = priors_logits.reshape(T, B, stochastic_size, discrete_size)
-        psl = posteriors_logits.reshape(T, B, stochastic_size, discrete_size)
-        rec_loss, kl_value, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
-            po, batch_obs, pr, rewards, pl, psl, pc=pc, continue_targets=1 - terminated, **kl
+        rec_loss, aux = world_model_loss(sc, wm, batch, noise["dyn"])
+        wm_norm = step_(txs["world_model"], params["world_model"], rec_loss, opt_states["world_model"])
+
+        # ------------------------------------------------ behaviour, imagined through the updated world model
+        starts = imagination_starts(sc, aux, batch["terminated"])
+        new_moments, loss, value_loss, actor_norm, critic_norm = behaviour_step(
+            sc, agent, txs, opt_states, params, moments, starts, noise["img"], noise["act"]
         )
-        wm_grads = _grads(rec_loss, wm_params)
-        wm_norm = global_norm(wm_grads.values())
-        txs["world_model"].update(wm_params, wm_grads, opt_states["world_model"], norm=wm_norm)
-        del wm_grads
 
-        # ------------------------------------------------ imagination, through the updated world model
-        imagined_prior = posteriors.detach().transpose(0, 1).reshape(T * B, stoch_state_size)
-        recurrent_state = recurrent_states.detach().transpose(0, 1).reshape(T * B, recurrent_state_size)
-        true_continue = (1 - terminated).transpose(0, 1).reshape(1, T * B, 1)
-        # with discrete actions nothing differentiable flows through the
-        # rollout (the objective is logp * sg(advantage)): build no graph
-        with torch.set_grad_enabled(is_continuous):
-            latent0 = torch.cat([imagined_prior, recurrent_state], -1).to(compute_dtype)
-            acts, _ = actor(latent0.detach(), False, noise=noise["act"][0])
-            action = torch.cat(acts, -1)
-            latents, imagined_actions = [latent0], [action]
-            for i in range(horizon):
-                imagined_prior, recurrent_state = rssm.imagination(
-                    imagined_prior, recurrent_state, action, noise=noise["img"][i]
-                )
-                imagined_prior = imagined_prior.reshape(-1, stoch_state_size)
-                latent = torch.cat([imagined_prior, recurrent_state], -1)
-                acts, _ = actor(latent.detach(), False, noise=noise["act"][i + 1])
-                action = torch.cat(acts, -1)
-                latents.append(latent.to(compute_dtype))
-                imagined_actions.append(action)
-            imagined_trajectories = torch.stack(latents)  # (H + 1, T*B, L)
-            imagined_actions = torch.stack(imagined_actions)
-            predicted_values = TwoHotEncodingDistribution(critic(imagined_trajectories), dims=1).mean
-            predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(imagined_trajectories), dims=1).mean
-            continues = Independent(BernoulliSafeMode(logits=wm.continue_model(imagined_trajectories)), 1).mode
-            continues = torch.cat([true_continue, continues[1:]], 0)
-            lambda_vals = compute_lambda_values(predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda)
-            discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
-
-        # ------------------------------------------------ actor
-        _, policies = actor(imagined_trajectories.detach(), True)
-        baseline = predicted_values[:-1]
-        new_moments, offset, invscale = update_moments(
-            moments, lambda_vals, float(moments_cfg.decay), float(moments_cfg.max),
-            float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
-        )
-        advantage = (lambda_vals - offset) / invscale - (baseline - offset) / invscale
-        if is_continuous:
-            objective = advantage
-        else:
-            sub_actions = torch.tensor_split(imagined_actions, splits, -1)
-            logps = torch.stack(
-                [p.log_prob(a.detach())[:-1][..., None] for p, a in zip(policies, sub_actions)], -1
-            ).sum(-1)
-            objective = logps * advantage.detach()
-        try:
-            entropy = ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
-        except (AttributeError, NotImplementedError):  # a distribution without entropy
-            entropy = torch.zeros(imagined_trajectories.shape[:2], device=device)
-        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
-        actor_grads = _grads(policy_loss, actor_params)
-        actor_norm = global_norm(actor_grads.values())
-        txs["actor"].update(actor_params, actor_grads, opt_states["actor"], norm=actor_norm)
-        del actor_grads
-
-        # ------------------------------------------------ critic
-        traj = imagined_trajectories.detach()[:-1]
-        lambda_vals = lambda_vals.detach()
-        qv = TwoHotEncodingDistribution(critic(traj), dims=1)
-        with torch.no_grad():
-            predicted_target_values = TwoHotEncodingDistribution(target_critic(traj), dims=1).mean
-        value_loss = -qv.log_prob(lambda_vals) - qv.log_prob(predicted_target_values)
-        value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
-        critic_grads = _grads(value_loss, critic_params)
-        critic_norm = global_norm(critic_grads.values())
-        txs["critic"].update(critic_params, critic_grads, opt_states["critic"], norm=critic_norm)
-
-        with torch.no_grad():
-            post_ent = Independent(OneHotCategorical(logits=psl.detach()), 1).entropy().mean()
-            prior_ent = Independent(OneHotCategorical(logits=pl.detach()), 1).entropy().mean()
         metrics = {
-            "Loss/world_model_loss": rec_loss.detach(),
-            "Loss/observation_loss": observation_loss.detach(),
-            "Loss/reward_loss": reward_loss.detach(),
-            "Loss/state_loss": state_loss.detach(),
-            "Loss/continue_loss": continue_loss.detach(),
-            "State/kl": kl_value.detach(),
-            "State/post_entropy": post_ent,
-            "State/prior_entropy": prior_ent,
-            "Loss/policy_loss": policy_loss.detach(),
-            "Loss/value_loss": value_loss.detach(),
+            **world_model_metrics(rec_loss, aux),
+            "Loss/policy_loss": loss,
+            "Loss/value_loss": value_loss,
             "Grads/world_model": wm_norm,
             "Grads/actor": actor_norm,
             "Grads/critic": critic_norm,
@@ -312,7 +501,8 @@ def train_steps(
     noises: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
 ) -> List[Dict[str, torch.Tensor]]:
     """The training block of ``main``: ``per_rank_gradient_steps`` steps on
-    one draw of sequence batches, each after the target critic's EMA.
+    one draw of sequence batches, each after the EMA of the agent's target
+    critics (``target_pairs``).
     ``noises`` optionally gives each step's pre-drawn noise.  Returns each
     step's metrics."""
     critic_cfg = cfg.algo.critic
@@ -325,7 +515,8 @@ def train_steps(
         for i, batch in enumerate(feed):
             if state.gradient_steps % int(critic_cfg.per_rank_target_network_update_freq) == 0:
                 tau = 1.0 if state.gradient_steps == 0 else float(critic_cfg.tau)
-                ema_(state.agent.target_critic, state.agent.critic, tau)
+                for target, source in state.agent.target_pairs():
+                    ema_(target, source, tau)
             state.opt_states, state.moments, state.metrics = state.train_fn(
                 state.opt_states, state.moments, batch, noise=None if noises is None else noises[i], generator=generator
             )
@@ -334,22 +525,48 @@ def train_steps(
     return out
 
 
-@register_algorithm()
-def main(runtime, cfg):
-    """The DreamerV3 env loop (module docstring).  Returns the run's summary:
-    log dir, last checkpoint, policy and gradient steps, iterations, test
-    reward, and the seconds spent in the warm-up iterations, in the
-    iterations from ``learning_starts`` on and in their gradient steps."""
-    import time
+@dataclass
+class DreamerRun:
+    """What a family's ``setup`` gives :func:`run_dreamer`: the train state,
+    the actor the player starts with, the actor it switches to at the first
+    gradient step (None: none) and the one the closing test runs (None: the
+    player's), and the checkpoint's model, optimizer and Moments entries."""
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
-    from sheeprl_tpu_torch.config import instantiate
-    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
-    from sheeprl_tpu_torch.data.device_buffer import maybe_create_for
-    from sheeprl_tpu_torch.envs import spaces
-    from sheeprl_tpu_torch.resilience.manager import CheckpointManager, restore_buffer
+    train_state: TrainState
+    player_actor: torch.nn.Module
+    ckpt_state: Callable[[], Dict]
+    train_actor: Optional[torch.nn.Module] = None
+    test_actor: Optional[torch.nn.Module] = None
+
+
+@dataclass(frozen=True)
+class DreamerFamily:
+    """What :func:`run_dreamer` builds for one family of agents: its name in
+    messages, the state it starts from (``load_state(cfg)``, which may pin
+    ``cfg``; None: a fresh start), its run (``setup(runtime, cfg,
+    actions_dim, is_continuous, obs_space, state)`` -> :class:`DreamerRun`),
+    whether the replay buffer comes from the state (``restore_rb(cfg,
+    state)``), whether the warm-up acts at random, and the closing test's
+    name.  Every family trains through :func:`train_steps` with its train
+    state's ``train_fn``."""
+
+    name: str
+    load_state: Callable
+    setup: Callable
+    restore_rb: Callable
+    random_warmup: bool = True
+    test_name: str = ""
+
+
+def resume_state(cfg):
+    """The checkpoint of ``checkpoint.resume_from``, or None."""
     from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+
+    return load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
+
+
+def _dv3_setup(runtime, cfg, actions_dim, is_continuous, observation_space, state) -> DreamerRun:
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.utils.convert import (
         adam_state_from_tree,
         adam_state_to_tree,
@@ -357,6 +574,56 @@ def main(runtime, cfg):
         moments_to_torch,
         torch_to_flax,
     )
+
+    agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space)
+    train_state = make_train_state(runtime, agent, cfg, is_continuous, actions_dim)
+    groups = {"world_model": agent.world_model, "actor": agent.actor, "critic": agent.critic}
+    if state is not None:
+        load_flax_params(agent, {k: state[k] for k in ("world_model", "actor", "critic", "target_critic")})
+        train_state.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in groups.items()}
+        train_state.moments = moments_to_torch(state["moments"], runtime.device)
+
+    def ckpt_state():
+        params = torch_to_flax(agent)
+        return {
+            **{k: params[k] for k in ("world_model", "actor", "critic", "target_critic")},
+            "opt_states": {g: adam_state_to_tree(train_state.opt_states[g], m, g) for g, m in groups.items()},
+            "moments": dict(train_state.moments),
+        }
+
+    return DreamerRun(train_state, agent.actor, ckpt_state)
+
+
+DV3_FAMILY = DreamerFamily(
+    name="DreamerV3",
+    load_state=resume_state,
+    setup=_dv3_setup,
+    restore_rb=lambda cfg, state: state is not None and bool(cfg.buffer.checkpoint),
+)
+
+
+@register_algorithm()
+def main(runtime, cfg):
+    """The DreamerV3 env loop (module docstring): :func:`run_dreamer`."""
+    return run_dreamer(runtime, cfg, DV3_FAMILY)
+
+
+def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
+    """The env loop that DreamerV3 and Plan2Explore's two phases share
+    (module docstring).  Returns the run's summary: log dir, last
+    checkpoint, policy and gradient steps, iterations, test reward, whether
+    the player had switched to the run's ``train_actor`` by the end, and the
+    seconds spent in the warm-up iterations, in the iterations from
+    ``learning_starts`` on and in their gradient steps."""
+    import time
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import DreamerPlayer, PlayerDV3, WorldModel
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
+    from sheeprl_tpu_torch.config import instantiate
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+    from sheeprl_tpu_torch.data.device_buffer import maybe_create_for
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.resilience.manager import CheckpointManager, restore_buffer
     from sheeprl_tpu_torch.utils.env import make_train_envs
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
@@ -370,10 +637,11 @@ def main(runtime, cfg):
         save_configs,
     )
 
-    check_loop_scope(runtime, cfg, "DreamerV3", off_policy=True)
+    check_loop_scope(runtime, cfg, family.name, off_policy=True)
     world_size = runtime.world_size
     runtime.seed_everything(cfg.seed)
-    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
+    state = family.load_state(cfg)
+    resumed = bool(cfg.checkpoint.resume_from)
 
     cfg.env.frame_stack = -1
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
@@ -410,16 +678,12 @@ def main(runtime, cfg):
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
 
-    agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space)
-    train_state = make_train_state(runtime, agent, cfg, is_continuous, actions_dim)
-    groups = {"world_model": agent.world_model, "actor": agent.actor, "critic": agent.critic}
-    if state is not None:
-        load_flax_params(agent, {k: state[k] for k in ("world_model", "actor", "critic", "target_critic")})
-        train_state.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in groups.items()}
-        train_state.moments = moments_to_torch(state["moments"], runtime.device)
+    run = family.setup(runtime, cfg, actions_dim, is_continuous, observation_space, state)
+    train_state = run.train_state
+    wm = train_state.agent.world_model
     wm_cfg = cfg.algo.world_model
     player = PlayerDV3(
-        agent.player(),
+        DreamerPlayer(WorldModel(wm.encoder, wm.rssm), run.player_actor),
         actions_dim,
         total_envs,
         wm_cfg.stochastic_size,
@@ -435,27 +699,28 @@ def main(runtime, cfg):
     rb = EnvIndependentReplayBuffer(
         max(buffer_size, 2), n_envs=total_envs, memmap=cfg.buffer.memmap, buffer_cls=SequentialReplayBuffer
     )
-    if state and cfg.buffer.checkpoint:
+    restored_rb = family.restore_rb(cfg, state)
+    if restored_rb:
         rb = restore_buffer(state["rb"])
-    device_cache = maybe_create_for(cfg, runtime, rb, state if state and cfg.buffer.checkpoint else None)
+    device_cache = maybe_create_for(cfg, runtime, rb, state if restored_rb else None)
 
     train_step = 0
     last_train = 0
-    start_iter = (state["iter_num"] // world_size) + 1 if state else 1
-    policy_step = state["iter_num"] * cfg.env.num_envs if state else 0
-    last_log = state["last_log"] if state else 0
-    last_checkpoint = state["last_checkpoint"] if state else 0
+    start_iter = (state["iter_num"] // world_size) + 1 if resumed else 1
+    policy_step = state["iter_num"] * cfg.env.num_envs if resumed else 0
+    last_log = state["last_log"] if resumed else 0
+    last_checkpoint = state["last_checkpoint"] if resumed else 0
     policy_steps_per_iter = int(total_envs)
     total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
-    if state:
+    if resumed:
         cfg.algo.per_rank_batch_size = state["batch_size"] // world_size
         learning_starts += start_iter
         prefill_steps += start_iter
 
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
-    if state:
+    if resumed:
         ratio.load_state_dict(state["ratio"])
 
     ckpt_mgr = CheckpointManager(runtime, cfg, log_dir, last_checkpoint=last_checkpoint)
@@ -479,7 +744,7 @@ def main(runtime, cfg):
         policy_step += policy_steps_per_iter
 
         with timer("Time/env_interaction_time", SumMetric, sync_on_compute=False):
-            if iter_num <= learning_starts and cfg.checkpoint.resume_from is None:
+            if family.random_warmup and iter_num <= learning_starts and cfg.checkpoint.resume_from is None:
                 real_actions = actions = envs.sample_actions().cpu().numpy()
                 if not is_continuous:
                     actions = np.concatenate(
@@ -558,6 +823,8 @@ def main(runtime, cfg):
             ratio_steps = policy_step - prefill_steps * policy_steps_per_iter
             per_rank_gradient_steps = ratio(ratio_steps / world_size)
             if per_rank_gradient_steps > 0:
+                if run.train_actor is not None:
+                    player.agent.actor = run.train_actor
                 train_t0 = time.perf_counter()
                 with timer("Time/train_time", SumMetric, sync_on_compute=cfg.metric.sync_on_compute):
                     train_steps(train_state, rb, device_cache, cfg, per_rank_gradient_steps, runtime.generator)
@@ -610,14 +877,8 @@ def main(runtime, cfg):
 
         # ------------------------------------------------------ checkpoint
         def _ckpt_state():
-            params = torch_to_flax(agent)
             ckpt_state = {
-                "world_model": params["world_model"],
-                "actor": params["actor"],
-                "critic": params["critic"],
-                "target_critic": params["target_critic"],
-                "opt_states": {g: adam_state_to_tree(train_state.opt_states[g], m, g) for g, m in groups.items()},
-                "moments": dict(train_state.moments),
+                **run.ckpt_state(),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num * world_size,
                 "batch_size": cfg.algo.per_rank_batch_size * world_size,
@@ -636,13 +897,16 @@ def main(runtime, cfg):
 
     ckpt_mgr.close()
     envs.close()
+    actor_switched = run.train_actor is not None and player.agent.actor is run.train_actor
     test_rew = None
     if cfg.algo.run_test:
-        test_rew = test(player, runtime, cfg, log_dir, greedy=False)
+        if run.test_actor is not None:
+            player.agent.actor = run.test_actor
+        test_rew = test(player, runtime, cfg, log_dir, family.test_name, greedy=False)
         if logger:
             logger.log_metrics({"Test/cumulative_reward": test_rew}, policy_step)
     if logger:
         logger.finalize()
     return {"log_dir": log_dir, "checkpoint": last_path, "policy_step": policy_step, "test_reward": test_rew,
             "iterations": total_iters - start_iter + 1, "gradient_steps": train_state.gradient_steps,
-            "learning_starts": learning_starts, **seconds}
+            "learning_starts": learning_starts, "actor_switched": actor_switched, **seconds}

@@ -25,8 +25,9 @@ Randomness: a train function call draws its standard-normal noise
 (G, 2, B, A) up front from a ``torch.Generator`` (``[:, 0]`` for the next
 actions, ``[:, 1]`` for the actor loss), or takes it pre-drawn.
 
-:func:`main` is the env loop (``sac.py:235-666``) on the port's stepping
-device vector env: random warm-up actions until ``learning_starts``, then
+:func:`main` is the env loop (``sac.py:235-666``), :func:`run_off_policy`,
+which DroQ shares through its own :class:`OffPolicyFamily`, on the port's
+stepping device vector env: random warm-up actions until ``learning_starts``, then
 the actor's; every step's row into a ``ReplayBuffer`` and, held back
 ``algo.dispatch_batch`` steps at a time, into its device cache; the
 ``Ratio``-granted gradient steps collected into dispatches of
@@ -48,13 +49,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.sac.agent import SACAgent, actor_action_and_log_prob
+from sheeprl_tpu_torch.algos.sac.agent import SACAgent, actor_action_and_log_prob, build_agent
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, critic_loss_weighted, entropy_loss, policy_loss, td_error_abs
 from sheeprl_tpu_torch.optim import Adam, AdamState, build_optimizer, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import ema_, grads_or_zeros, trainable_params
 
-__all__ = ["SACTrainState", "main", "make_train_fn", "make_train_state", "train_dispatch"]
+__all__ = ["OffPolicyFamily", "SACTrainState", "SAC_FAMILY", "main", "make_train_fn", "make_train_state",
+           "run_off_policy", "train_dispatch"]
 
 OBS_KEYS = ("observations",)
 
@@ -143,15 +145,18 @@ class SACTrainState:
     gradient_steps: int = 0  # cumulative_per_rank_gradient_steps
 
 
-def make_train_state(runtime, agent: SACAgent, cfg, target_entropy: float, prioritized: bool = False) -> SACTrainState:
-    """An Adam per component (``_make_optimizer``), their states and the train function."""
+def make_train_state(runtime, agent: SACAgent, cfg, target_entropy: float, prioritized: bool = False,
+                     train_fn_factory: Optional[Callable] = None) -> SACTrainState:
+    """An Adam per component (``_make_optimizer``), their states and the
+    train function of ``train_fn_factory`` (SAC's :func:`make_train_fn` by
+    default; DroQ passes its own)."""
     txs = {name: build_optimizer(cfg.algo[name].optimizer, None, runtime.precision) for name in ("actor", "critic", "alpha")}
     opt_states = {
         "actor": txs["actor"].init(trainable_params(agent.actor)),
         "critic": txs["critic"].init(trainable_params(agent.critic)),
         "alpha": txs["alpha"].init({"log_alpha": agent.log_alpha}),
     }
-    train_fn = make_train_fn(runtime, agent, txs, cfg, target_entropy, prioritized)
+    train_fn = (train_fn_factory or make_train_fn)(runtime, agent, txs, cfg, target_entropy, prioritized)
     return SACTrainState(agent, txs, opt_states, train_fn, bool(prioritized), runtime)
 
 
@@ -225,16 +230,44 @@ def train_dispatch(
     return metrics
 
 
+@dataclass(frozen=True)
+class OffPolicyFamily:
+    """What :func:`run_off_policy` builds for one family of agents: its name
+    in messages, the agent (``build_agent(runtime, cfg, obs_space,
+    action_space)`` -> (agent, target entropy)), its train state
+    (``make_train_state(runtime, agent, cfg, target_entropy, prioritized)``)
+    and its dispatch (``dispatch(state, rb, device_cache, cfg, ema_flags,
+    policy_step, beta_fn, pending_rows, generator)`` -> metrics);
+    ``batched``: whether ``algo.dispatch_batch`` applies (else every
+    iteration's gradient steps are one dispatch)."""
+
+    name: str
+    build_agent: Callable
+    make_train_state: Callable
+    dispatch: Callable
+    batched: bool = True
+
+
+# the dispatch is looked up at each call, so that a caller may wrap the module's train_dispatch
+SAC_FAMILY = OffPolicyFamily("SAC", build_agent, make_train_state, lambda *a, **k: train_dispatch(*a, **k))
+
+
 @register_algorithm()
 def main(runtime, cfg):
-    """The SAC env loop (module docstring).  Returns the run's summary: log
-    dir, last checkpoint, policy and gradient steps, iterations, dispatches,
-    test reward, and the seconds spent in the warm-up iterations, in the
-    iterations from ``learning_starts`` on and in their dispatches."""
+    """The SAC env loop (module docstring): :func:`run_off_policy`."""
+    return run_off_policy(runtime, cfg, SAC_FAMILY)
+
+
+def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
+    """The off-policy env loop that SAC and DroQ share (module docstring).
+    Returns the run's summary: log dir, last checkpoint, policy and gradient
+    steps, iterations, dispatches, test reward, and the seconds spent in the
+    warm-up iterations, in the iterations from ``learning_starts`` on and in
+    their dispatches."""
     import time
     import warnings
 
-    from sheeprl_tpu_torch.algos.sac.agent import SACPlayer, build_agent
+    from sheeprl_tpu_torch.algos.sac.agent import SACPlayer
     from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
@@ -251,8 +284,8 @@ def main(runtime, cfg):
     from sheeprl_tpu_torch.utils.utils import MetricFetchGate, Ratio, check_loop_scope, fetch_metrics, save_configs
 
     if "minedojo" in str(cfg.env.wrapper.get("_target_", "")).lower():
-        raise ValueError("MineDojo is not supported by the SAC agent")
-    check_loop_scope(runtime, cfg, "SAC", off_policy=True)
+        raise ValueError(f"MineDojo is not supported by the {family.name} agent")
+    check_loop_scope(runtime, cfg, family.name, off_policy=True)
     if (cfg.buffer.get("rate_limiter") or {}).get("samples_per_insert") is not None:
         raise NotImplementedError("buffer.rate_limiter.samples_per_insert (replay/rate_limiter.py) waits for ROADMAP A2")
 
@@ -261,7 +294,7 @@ def main(runtime, cfg):
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
 
     if len(cfg.algo.cnn_keys.encoder) > 0:
-        warnings.warn("SAC cannot use image observations, the CNN keys will be ignored")
+        warnings.warn(f"{family.name} cannot use image observations, the CNN keys will be ignored")
         cfg.algo.cnn_keys.encoder = []
 
     logger = get_logger(runtime, cfg)
@@ -275,7 +308,7 @@ def main(runtime, cfg):
     action_space = envs.single_action_space
     observation_space = envs.single_observation_space
     if not isinstance(action_space, spaces.Box):
-        raise ValueError("Only continuous action space is supported for the SAC agent")
+        raise ValueError(f"Only continuous action space is supported for the {family.name} agent")
     if not isinstance(observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
     if len(cfg.algo.mlp_keys.encoder) == 0:
@@ -283,11 +316,11 @@ def main(runtime, cfg):
     for k in cfg.algo.mlp_keys.encoder:
         if len(observation_space[k].shape) > 1:
             raise ValueError(
-                f"Only vector observations are supported by SAC; key '{k}' has shape {observation_space[k].shape}"
+                f"Only vector observations are supported by {family.name}; key '{k}' has shape {observation_space[k].shape}"
             )
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
 
-    agent, target_entropy = build_agent(runtime, cfg, observation_space, action_space)
+    agent, target_entropy = family.build_agent(runtime, cfg, observation_space, action_space)
     if state is not None:
         load_flax_params(agent, state["agent"])
     player = SACPlayer(agent.actor, lambda o: prepare_obs(o, mlp_keys=mlp_keys, num_envs=total_envs))
@@ -304,7 +337,7 @@ def main(runtime, cfg):
     beta_fn = per_beta_schedule(
         cfg.buffer.get("per_beta", 0.4), cfg.buffer.get("per_beta_end", 1.0), int(cfg.algo.total_steps)
     )
-    train_state = make_train_state(runtime, agent, cfg, target_entropy, prioritized)
+    train_state = family.make_train_state(runtime, agent, cfg, target_entropy, prioritized)
     if state is not None:
         modules = {"actor": agent.actor, "critic": agent.critic, "alpha": agent}
         train_state.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in modules.items()}
@@ -336,7 +369,7 @@ def main(runtime, cfg):
 
     # the cache's rows land as one window every dispatch_batch steps, and
     # before every draw (train_dispatch flushes what is left)
-    dispatch_batch = max(1, int(cfg.algo.get("dispatch_batch", 1)))
+    dispatch_batch = max(1, int(cfg.algo.get("dispatch_batch", 1))) if family.batched else 1
     pending_iters = list(state.get("pending_iters", [])) if state else []
     pending_rows: List[Dict[str, np.ndarray]] = []
 
@@ -406,7 +439,7 @@ def main(runtime, cfg):
                 pending_iters = pending_iters[g:]
                 train_t0 = time.perf_counter()
                 with timer("Time/train_time", SumMetric, sync_on_compute=cfg.metric.sync_on_compute):
-                    metrics = train_dispatch(
+                    metrics = family.dispatch(
                         train_state, rb, device_cache, cfg, ema_flags, policy_step, beta_fn, pending_rows,
                         runtime.generator,
                     )

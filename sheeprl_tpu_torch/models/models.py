@@ -23,10 +23,13 @@ __all__ = [
     "LayerNorm",
     "LayerNormGRUCell",
     "MLP",
+    "dropout",
+    "dropout_mask",
     "flax_init_",
     "lecun_normal_",
     "gru_cell_apply",
     "layer_norm",
+    "layer_norm_stacked",
     "ln_act_apply",
     "resolve_activation",
 ]
@@ -126,6 +129,17 @@ def layer_norm(
     return (xf - mu) * mul + bias.float().reshape(shape)
 
 
+def layer_norm_stacked(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """N flax LayerNorms side by side: ``x`` (N, ..., F), ``weight`` and
+    ``bias`` (N, F), member i normalised with row i.  Returns f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    shape = (weight.shape[0],) + (1,) * (xf.dim() - 2) + (weight.shape[-1],)
+    mul = torch.rsqrt(var + eps) * weight.float().reshape(shape)
+    return (xf - mu) * mul + bias.float().reshape(shape)
+
+
 class LayerNorm(nn.Module):
     """Parameters of one flax LayerNorm (``scale`` -> ``weight``)."""
 
@@ -206,12 +220,30 @@ class LayerNormGRUCell(nn.Module):
         return gru_cell_apply(self, h, x)
 
 
+def dropout_mask(shape, rate: float, generator: torch.Generator, device=None) -> torch.Tensor:
+    """flax ``Dropout``'s keep mask: True with probability ``1 - rate``,
+    drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - float(rate))
+
+
+def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``x / (1 - rate)`` where ``mask`` keeps, else 0;
+    ``x`` itself when ``mask`` is None (deterministic)."""
+    if mask is None or not rate:
+        return x
+    return torch.where(mask, x / (1.0 - float(rate)), torch.zeros_like(x))
+
+
 class MLP(nn.Module):
     """``sheeprl_tpu/models/models.py:MLP``: per hidden layer linear ->
     dropout -> LayerNorm -> activation, then an optional linear head.
     Initialised as flax does (``lecun_normal`` kernels, zero biases).
     ``layers``/``head`` are ``nn.Linear`` (weight (out, in), the flax kernel
-    transposed); the LayerNorms keep flax's formulas (:func:`layer_norm`)."""
+    transposed); the LayerNorms keep flax's formulas (:func:`layer_norm`).
+
+    Dropout is chosen per call, not by ``.training``: deterministic unless
+    ``masks`` (one keep mask per hidden layer with a nonzero rate, shaped
+    like its output) or a ``generator`` to draw them from is given."""
 
     def __init__(
         self,
@@ -230,15 +262,13 @@ class MLP(nn.Module):
         self.acts = [resolve_activation(a) for a in _per_layer(activation, n)]
         norms = _per_layer(layer_norm, n)
         norm_args = _per_layer(norm_args, n)
-        drops = _per_layer(dropout, n)
+        self.rates = [float(r or 0.0) for r in _per_layer(dropout, n)]
         self.flatten_dim = flatten_dim
         self.layers = nn.ModuleList()
         self.norms = nn.ModuleList()
-        self.drops = nn.ModuleList()
         dims = [int(input_dim), *[int(h) for h in hidden_sizes]]
         for i in range(n):
             self.layers.append(self._linear(dims[i], dims[i + 1], device))
-            self.drops.append(nn.Dropout(float(drops[i])) if drops[i] else nn.Identity())
             eps = (norm_args[i] or {}).get("eps", 1e-5) if isinstance(norm_args[i], dict) else 1e-5
             self.norms.append(LayerNorm(dims[i + 1], eps=eps, device=device) if norms[i] else nn.Identity())
         self.head = None if output_dim is None else self._linear(dims[-1], int(output_dim), device)
@@ -250,9 +280,19 @@ class MLP(nn.Module):
         nn.init.zeros_(lin.bias)
         return lin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, masks=None, generator: torch.Generator = None) -> torch.Tensor:
         if self.flatten_dim is not None:
             x = x.reshape(*x.shape[: self.flatten_dim], -1)
-        for lin, drop, norm, act in zip(self.layers, self.drops, self.norms, self.acts):
-            x = act(norm(drop(lin(x))))
+        masks = list(masks) if masks is not None else None
+        for lin, rate, norm, act in zip(self.layers, self.rates, self.norms, self.acts):
+            x = lin(x)
+            if rate:
+                if masks is not None:
+                    mask = masks.pop(0)
+                elif generator is not None:
+                    mask = dropout_mask(x.shape, rate, generator, x.device)
+                else:
+                    mask = None
+                x = dropout(x, rate, mask)
+            x = act(norm(x))
         return x if self.head is None else self.head(x)

@@ -7,7 +7,11 @@ Counterpart of ``sheeprl_tpu/resilience/manager.py:CheckpointManager``:
 - the state is brought to the host (torch tensors to numpy), refused when
   the agent's parameters are not finite (unless
   ``checkpoint.allow_nonfinite``), written as a ``sheeprl_tpu_ckpt_v1``
-  file and the oldest files beyond ``checkpoint.keep_last`` removed;
+  file and the oldest files beyond ``checkpoint.keep_last`` removed.  As in
+  the JAX package the finiteness check reads ``"agent"``, the key of the
+  PPO, SAC and DroQ states; DreamerV3's and Plan2Explore's keep their
+  models under top-level keys (``world_model``, ``actor_task``,
+  ``critics_exploration``, ``ensembles``, ...), which it does not read;
 - a replay buffer under ``"rb"`` is written in the JAX package's layout
   (``utils/callback.py:_materialize_rb``), its newest row of every env
   marked truncated in the saved copy only (``_ckpt_rb``), so that a resumed

@@ -1,5 +1,5 @@
-"""Carry the JAX package's DreamerV3, SAC and PPO/A2C state into the port's
-modules, and the PPO/A2C state back.
+"""Carry the JAX package's DreamerV3, Plan2Explore-DreamerV3, SAC, DroQ and
+PPO/A2C state into the port's modules, and back.
 
 ``flax_to_torch(tree, agent)`` turns a parameter tree of ``sheeprl_tpu``
 (numpy arrays, as a checkpoint holds them) into a ``state_dict``:
@@ -14,7 +14,14 @@ modules, and the PPO/A2C state back.
   ``{"actor", "critic", "target_critic", "log_alpha"}``: the actor's
   ``MLP_0/Dense_{0,1}`` trunk and ``Dense_{0,1}`` mean/log-std heads, the
   stacked critics' ``MLP_0/Dense_i`` kernels (N, in, out) and biases
-  (N, out) kept as they are (the layout the batched critic reads);
+  (N, out) kept as they are (the layout the batched critic reads), and
+  DroQ's stacked ``MLP_0/LayerNorm_i`` scales and biases (N, hidden);
+- for a :class:`~sheeprl_tpu_torch.algos.p2e_dv3.agent.P2EDV3Agent`, the
+  tree ``{"world_model", "actor_task", "critic_task", "target_critic_task",
+  "actor_exploration", "critics_exploration": {name: {"module",
+  "target_module"}}, "ensembles"}`` (:data:`P2E_KEYS`, an exploration
+  checkpoint's), the ensembles' vmapped ``LinearLnAct_<i>`` and head leaves
+  with their leading member axis kept;
 - for a :class:`~sheeprl_tpu_torch.algos.ppo.agent.PPOAgentModule` (PPO
   and A2C), the flax variables ``{"params": {"feature_extractor":
   {"mlp_encoder": {"MLP_0": ...}}, "critic", "actor_backbone",
@@ -60,6 +67,7 @@ import torch
 
 __all__ = [
     "ConversionError",
+    "adam_state_from_checkpoint",
     "adam_state_from_tree",
     "adam_state_to_tree",
     "flatten_tree",
@@ -71,6 +79,8 @@ __all__ = [
     "opt_state_from_tree",
     "opt_state_to_torch",
     "opt_state_to_tree",
+    "load_p2e_state",
+    "p2e_state",
     "torch_to_flax",
     "unflatten_tree",
 ]
@@ -211,9 +221,28 @@ def _sac_actor(m: _Mapper, actor, src: str, dst: str) -> None:
 
 
 def _sac_critic(m: _Mapper, critic, src: str, dst: str) -> None:
+    """SAC's stacked critics, or DroQ's with their stacked ``LayerNorm_<i>``."""
     for i in range(len(critic.weights)):
         m.put(f"{dst}.weights.{i}", m.take(f"{src}/params/MLP_0/Dense_{i}/kernel"))
         m.put(f"{dst}.biases.{i}", m.take(f"{src}/params/MLP_0/Dense_{i}/bias"))
+    for i in range(len(getattr(critic, "norm_weights", ()))):
+        m.put(f"{dst}.norm_weights.{i}", m.take(f"{src}/params/MLP_0/LayerNorm_{i}/scale"))
+        m.put(f"{dst}.norm_biases.{i}", m.take(f"{src}/params/MLP_0/LayerNorm_{i}/bias"))
+
+
+def _stacked_mlp(m: _Mapper, mlp, src: str, dst: str) -> None:
+    """A vmapped flax DreamerMLP (``LinearLnAct_<i>/Dense_0``, ``LayerNorm_0``
+    or a bias, head ``Dense_0``, every leaf with a leading member axis) as a
+    :class:`~sheeprl_tpu_torch.algos.p2e_dv3.agent.StackedDreamerMLP`."""
+    for i in range(len(mlp.weights)):
+        m.put(f"{dst}.weights.{i}", m.take(f"{src}/LinearLnAct_{i}/Dense_0/kernel"))
+        if mlp.layer_norm:
+            m.put(f"{dst}.norm_weights.{i}", m.take(f"{src}/LinearLnAct_{i}/LayerNorm_0/scale"))
+            m.put(f"{dst}.norm_biases.{i}", m.take(f"{src}/LinearLnAct_{i}/LayerNorm_0/bias"))
+        else:
+            m.put(f"{dst}.biases.{i}", m.take(f"{src}/LinearLnAct_{i}/Dense_0/bias"))
+    m.put(f"{dst}.head_weight", m.take(f"{src}/Dense_0/kernel"))
+    m.put(f"{dst}.head_bias", m.take(f"{src}/Dense_0/bias"))
 
 
 class _Ref:
@@ -358,15 +387,18 @@ def _is_full_agent(agent: torch.nn.Module) -> bool:
 
 def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` for ``agent`` (a ``DreamerPlayer``, a
-    ``DreamerAgent``, a ``SACAgent`` or a ``PPOAgentModule``) from the JAX
-    tree described in the module docstring."""
+    ``DreamerAgent``, a ``P2EDV3Agent``, a ``SACAgent`` or a
+    ``PPOAgentModule``) from the JAX tree described in the module
+    docstring."""
     if _is_ppo(agent):
         if set(tree) != {"params"}:
             raise ConversionError(f"expected keys ['params'], got {sorted(tree)}")
         m = _Mapper(flatten_tree(tree))
         _ppo(m, agent)
         return _finish(m, agent.state_dict())
-    if _is_sac(agent):
+    if _is_p2e(agent):
+        expect = set(P2E_KEYS)
+    elif _is_sac(agent):
         expect = {"actor", "critic", "target_critic", "log_alpha"}
     elif _is_full_agent(agent):
         expect = {"world_model", "actor", "critic", "target_critic"}
@@ -374,7 +406,7 @@ def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, tor
         expect = {"world_model", "actor"}
     if set(tree) != expect:
         raise ConversionError(f"expected keys {sorted(expect)}, got {sorted(tree)}")
-    if _is_sac(agent) or _is_full_agent(agent):
+    if _is_full_agent(agent):
         flat = flatten_tree(tree)
     else:
         wm_tree = {k: v for k, v in tree["world_model"].items() if k not in UNSERVED}
@@ -384,8 +416,74 @@ def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, tor
     return _finish(m, agent.state_dict())
 
 
+# Plan2Explore-DreamerV3: the JAX tree's keys and the port's modules
+P2E_KEYS = {"world_model": "world_model", "actor_task": "actor", "critic_task": "critic",
+            "target_critic_task": "target_critic", "actor_exploration": "actor_exploration",
+            "critics_exploration": "critics_exploration", "ensembles": "ensembles"}
+
+
+def _is_p2e(agent: torch.nn.Module) -> bool:
+    return hasattr(agent, "ensembles")
+
+
+def _map_p2e(m, agent: torch.nn.Module) -> None:
+    """The mapping of a P2E-DV3 agent (:data:`P2E_KEYS`)."""
+    _encoder_rssm(m, agent.world_model, "world_model", "world_model")
+    _training_heads(m, agent.world_model, "world_model", "world_model")
+    for key in ("actor_task", "actor_exploration"):
+        _actor(m, getattr(agent, P2E_KEYS[key]), key, P2E_KEYS[key])
+    for key in ("critic_task", "target_critic_task"):
+        m.mlp(f"{key}/params", P2E_KEYS[key], len(getattr(agent, P2E_KEYS[key]).layers), head=True)
+    for name, pair in agent.critics_exploration.items():
+        for sub in ("module", "target_module"):
+            m.mlp(f"critics_exploration/{name}/{sub}/params", f"critics_exploration.{name}.{sub}",
+                  len(pair[sub].layers), head=True)
+    _stacked_mlp(m, agent.ensembles, "ensembles/params", "ensembles")
+
+
+# the P2E-DV3 optimizer groups: the port's name, the JAX checkpoint's, the mapping that lays it out
+P2E_OPT_GROUPS = (("world_model", "world_model", "world_model"), ("ensembles", "ensembles", "ensembles"),
+                  ("actor", "actor_task", "actor"), ("critic", "critic_task", "critic"),
+                  ("actor_exploration", "actor_exploration", "actor"))
+
+
+def p2e_state(agent, train_state) -> Dict[str, Any]:
+    """An exploration checkpoint's model, optimizer and Moments entries in
+    the JAX package's keys."""
+    modules = {"world_model": agent.world_model, "ensembles": agent.ensembles, "actor": agent.actor,
+               "critic": agent.critic, "actor_exploration": agent.actor_exploration}
+    opt = {jax_g: adam_state_to_tree(train_state.opt_states[port_g], modules[port_g], mapping)
+           for port_g, jax_g, mapping in P2E_OPT_GROUPS}
+    opt["critics_exploration"] = {
+        n: adam_state_to_tree(train_state.opt_states["critics_exploration"][n], pair["module"], "critic")
+        for n, pair in agent.critics_exploration.items()
+    }
+    return {**torch_to_flax(agent), "opt_states": opt, "moments_task": dict(train_state.moments["task"]),
+            "moments_exploration": {n: dict(v) for n, v in train_state.moments["exploration"].items()}}
+
+
+def load_p2e_state(agent, train_state, state: Dict[str, Any], device=None) -> None:
+    """The inverse of :func:`p2e_state`, into ``agent`` and ``train_state``."""
+    load_flax_params(agent, {k: state[k] for k in P2E_KEYS})
+    modules = {"world_model": agent.world_model, "ensembles": agent.ensembles, "actor": agent.actor,
+               "critic": agent.critic, "actor_exploration": agent.actor_exploration}
+    for port_g, jax_g, mapping in P2E_OPT_GROUPS:
+        train_state.opt_states[port_g] = adam_state_from_tree(state["opt_states"][jax_g], modules[port_g], mapping)
+    train_state.opt_states["critics_exploration"] = {
+        n: adam_state_from_tree(state["opt_states"]["critics_exploration"][n], pair["module"], "critic")
+        for n, pair in agent.critics_exploration.items()
+    }
+    train_state.moments = {"task": moments_to_torch(state["moments_task"], device),
+                           "exploration": {n: moments_to_torch(state["moments_exploration"][n], device)
+                                           for n in agent.critics_cfg}}
+
+
 def _map_agent(m, agent: torch.nn.Module) -> None:
-    """The whole mapping of a SAC agent, a DreamerV3 agent or a DreamerV3 player."""
+    """The whole mapping of a SAC agent, a P2E-DV3 agent, a DreamerV3 agent
+    or a DreamerV3 player."""
+    if _is_p2e(agent):
+        _map_p2e(m, agent)
+        return
     if _is_sac(agent):
         _sac_actor(m, agent.actor, "actor", "actor")
         for name in ("critic", "target_critic"):
@@ -406,6 +504,8 @@ def _map_group(m, module: torch.nn.Module, group: str) -> None:
     if group == "world_model":
         _encoder_rssm(m, module, group, group)
         _training_heads(m, module, group, group)
+    elif group == "ensembles":
+        _stacked_mlp(m, module, f"{group}/params", group)
     elif group == "actor" and hasattr(module, "log_std"):
         _sac_actor(m, module, group, group)
     elif group == "actor":
@@ -512,6 +612,15 @@ def adam_state_from_tree(tree: Dict[str, Any], module: torch.nn.Module, group: s
     else:
         mu, nu = ({k: v.to(dev) for k, v in _group_params(tree[m], module, group).items()} for m in ("mu", "nu"))
     return AdamState(int(np.asarray(tree["count"])), mu, nu)
+
+
+def adam_state_from_checkpoint(tree: Any, module: torch.nn.Module, group: str, device=None):
+    """One group's Adam state from either package's checkpoint: the port's
+    ``{"count", "mu", "nu"}`` (:func:`adam_state_from_tree`) or an optax
+    state as the JAX package writes it (:func:`opt_state_to_torch`)."""
+    if isinstance(tree, dict) and set(tree) == {"count", "mu", "nu"}:
+        return adam_state_from_tree(tree, module, group, device)
+    return opt_state_to_torch(tree, module, group, device)
 
 
 def opt_state_to_tree(state: Any, agent: torch.nn.Module) -> Dict[str, Any]:
