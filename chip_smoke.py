@@ -432,6 +432,30 @@ P2E_FINETUNE_EXP = ["exp=p2e_dv3_finetuning", *DV3_CLI_EXP[1:]]
 P2E_CLI_TRAIN_ITERS = {"gridworld": 16, "cartpole": 8}
 P2E_FINETUNE_LEARNING_STARTS = 512
 P2E_FINETUNE_ITERS = 8
+# DreamerV2 (exp=dreamer_v2) and DreamerV1 (exp=dreamer_v1) through the CLI
+# at their published widths (DV2: 400 x 4 ELU, recurrent 600 with the biased
+# LayerNorm GRU, stochastic 32 x 32, hidden 600, T 50, B 16, horizon 15,
+# replay ratio 0.2; DV1: 400 x 4, recurrent 200 with flax's GRU cell,
+# stochastic 30, T 50, B 50, horizon 15), MLP keys only and one env.  Only
+# depth is cut: learning_starts, total_steps and DV2's pretrain steps
+# (published 1000, 5M and 100; DV1's learning_starts 5000), and the ring to
+# 100,000 rows of 5M (a run writes under 400; a 5M ring makes each
+# checkpoint about 0.9 GB).  DV2 runs on
+# GridWorld through the device cache (#3) and on CartPole with prioritized
+# starts (#3, #5, #6); DV1 on Pendulum (continuous, the truncated-normal
+# head) through the device cache (#3).
+DV2_CLI_EXP = ["exp=dreamer_v2", *DV3_CLI_EXP[1:], "algo.per_rank_pretrain_steps=10", "buffer.size=100000"]
+DV2_CLI_RUNS = {
+    "gridworld": ["env=jax_gridworld", "buffer.device_cache=True", "buffer.per_kernel=pallas"],
+    "cartpole": ["env=jax_cartpole", "buffer.prioritized=True", "buffer.per_kernel=pallas"],
+}
+DV2_CLI_KERNELS = {"gridworld": ("gather_windows",),
+                   "cartpole": ("gather_windows", "sum_tree_sample", "sum_tree_write")}
+DV1_CLI_EXP = ["exp=dreamer_v1", *DV3_CLI_EXP[1:], "env=jax_pendulum", "env.id=jax_pendulum", "buffer.size=100000"]
+DV1_CLI_RUNS = {"pendulum": ["buffer.device_cache=True", "buffer.per_kernel=pallas"]}
+DV1_CLI_KERNELS = {"pendulum": ("gather_windows",)}
+DREAMER_CLI_LEARNING_STARTS = 256
+DREAMER_CLI_TRAIN_ITERS = {"dreamer_v2": 60, "dreamer_v1": 40}
 # Each CLI configuration runs once more, short, for a torch.profiler window
 # over CLI_PROFILE_ITERS training calls after CLI_PROFILE_START warm ones,
 # so that the profiler's cost stays out of the measured run's rates.
@@ -3665,6 +3689,194 @@ def run_p2e_dv3_cli(device: str, *, overrides=(), learning_starts: int = DV3_CLI
     return out
 
 
+def _dreamer_family(algo: str):
+    """The loop module of a Dreamer family and its family."""
+    from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2
+
+    return {"dreamer_v2": (dreamer_v2, dreamer_v2.DV2_FAMILY), "dreamer_v1": (dreamer_v1, dreamer_v1.DV1_FAMILY)}[algo]
+
+
+def _dreamer_run(cfg, state, device: str):
+    """A Dreamer family's agent and train state for ``cfg`` on ``device``,
+    loaded from the port checkpoint ``state``, and the env's action sizes."""
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.utils.env import make_device_env_from_cfg
+
+    env = make_device_env_from_cfg(cfg)
+    actions_dim, continuous = spaces.action_space_dims(env.action_space)
+    _, family = _dreamer_family(cfg.algo.name)
+    runtime = MeshRuntime(device=device, seed=0).launch()
+    run = family.setup(runtime, cfg, actions_dim, continuous, env.observation_space, state)
+    return run.train_state, actions_dim, continuous, env
+
+
+def dreamer_step_vs_cpu(cfg, ckpt_path: str, device: str) -> dict:
+    """One gradient step of a DreamerV2 or V1 checkpoint on ``device``
+    against the same step on the CPU: the same parameters and Adam states,
+    one batch drawn from the checkpoint's replay buffer and the same noise
+    drawn on the CPU.  Each metric within LOSS_RTOL (LOSS_ATOL), the
+    parameters after the step within PARAM_ATOL; the step's host time on
+    each side."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.resilience.manager import restore_buffer
+    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+
+    module, _ = _dreamer_family(cfg.algo.name)
+    state = load_checkpoint(ckpt_path)
+    T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    sample = restore_buffer(state["rb"]).sample(B, sequence_length=T, n_samples=1)
+    batch = {k: torch.as_tensor(np.asarray(v[0]), dtype=torch.float32) for k, v in sample.items()}
+    runs = {}
+    for dev in ("cpu", device):
+        ts, _, _, _ = _dreamer_run(cfg, state, dev)
+        noise = module.draw_noise(cfg, T, B, ts.agent.actor, device="cpu", generator=torch.Generator().manual_seed(7))
+        data = {k: v.to(dev) for k, v in batch.items()}
+        noise = {k: v.to(dev) for k, v in noise.items()}
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = ts.train_fn(ts.opt_states, ts.moments, data, noise=noise)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[dev] = {"metrics": metrics, "ms": ms, "params": {k: v.detach().cpu() for k, v in ts.agent.state_dict().items()}}
+    cpu, card = runs["cpu"], runs[device]
+    rel = {}
+    for k, want in cpu["metrics"].items():
+        have = card["metrics"][k]
+        tol = LOSS_RTOL.get(k, 0.1 if k.startswith("Grads/") else LOSS_RTOL_DEFAULT)
+        rel[k] = abs(have - want) / max(abs(want), 1e-12)
+        if not np.isfinite(have) or abs(have - want) > tol * abs(want) + LOSS_ATOL:
+            raise AssertionError(f"{cfg.algo.name} step on {device} against the CPU: {k} {have} vs {want}")
+    err = max(float((card["params"][k] - v).abs().max()) for k, v in cpu["params"].items())
+    if not np.isfinite(err) or err > PARAM_ATOL:
+        raise AssertionError(f"{cfg.algo.name} step on {device} against the CPU: parameters differ by {err} > {PARAM_ATOL}")
+    return {"max_abs_param_err": err, "param_tol": PARAM_ATOL, "metric_rel_err": rel, "metrics": card["metrics"],
+            "step_ms": card["ms"], "cpu_step_ms": cpu["ms"], "T": T, "B": B}
+
+
+def dreamer_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> dict:
+    """A DreamerV2 or V1 checkpoint's player on ``device`` against the same
+    player on the CPU (plain versions): the same observations (a CPU rollout
+    of 4 envs acting on the CPU's actions) and the same latent noise (Gumbel
+    for V2's discrete latents, normals for V1's) for 16 steps; the recurrent
+    states within STATE_TOL at every step, the greedy actions identical
+    (discrete) or within STATE_TOL (continuous)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.envs.device import DeviceVectorEnv
+    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+
+    state = load_checkpoint(ckpt_path)
+    agents = {}
+    for dev in (device, "cpu"):
+        ts, actions_dim, continuous, env = _dreamer_run(cfg, state, dev)
+        agents[dev] = ts.agent.player()
+    wm_cfg = cfg.algo.world_model
+    latent = (int(wm_cfg.stochastic_size),) + ((int(wm_cfg.discrete_size),) if cfg.algo.name == "dreamer_v2" else ())
+    n = 4
+    vec = DeviceVectorEnv(env, n, device="cpu", seed=3)
+    obs = vec.reset(seed=3)[0]
+    gen = torch.Generator().manual_seed(4)
+    runs = {dev: {} for dev in agents}
+    worst = worst_act = 0.0
+    with torch.no_grad():
+        for t in range(steps):
+            u = torch.rand((1, n, *latent), generator=gen)
+            noise = -torch.log(-torch.log(u.clamp_min(1e-30))) if len(latent) == 2 else torch.randn((1, n, *latent), generator=gen)
+            acts = {}
+            for dev, player in agents.items():
+                st, rssm = runs[dev], player.world_model.rssm
+                if not st:
+                    st.update(rec=torch.zeros(1, n, rssm.recurrent_state_size, device=dev),
+                              stoch=torch.zeros(1, n, int(np.prod(latent)), device=dev),
+                              act=torch.zeros(1, n, sum(actions_dim), device=dev))
+                emb = player.world_model.encoder({"state": torch.from_numpy(obs["state"]).to(dev).reshape(1, n, -1)})
+                st["rec"] = rssm.recurrent_step(torch.cat([st["stoch"], st["act"]], -1), st["rec"])
+                _, stoch = rssm._representation(st["rec"], emb, noise=noise.to(dev))
+                st["stoch"] = stoch.reshape(1, n, -1)
+                heads, _ = player.actor(torch.cat([st["stoch"], st["rec"]], -1), True)
+                st["act"] = torch.cat(heads, -1)
+                acts[dev] = st["act"].cpu()
+            if continuous:
+                worst_act = max(worst_act, float((acts[device] - acts["cpu"]).abs().max()))
+                if not np.isfinite(worst_act) or worst_act > STATE_TOL:
+                    raise AssertionError(f"step {t}: greedy actions differ by {worst_act} > {STATE_TOL}")
+                step_actions = acts["cpu"].numpy().reshape(n, -1)
+            else:
+                if not torch.equal(acts[device].argmax(-1), acts["cpu"].argmax(-1)):
+                    raise AssertionError(f"step {t}: greedy actions differ between {device} and the plain CPU player")
+                step_actions = acts["cpu"].argmax(-1).numpy().reshape(n)
+            err = float((runs[device]["rec"].cpu() - runs["cpu"]["rec"]).abs().max())
+            worst = max(worst, err)
+            if not np.isfinite(err) or err > STATE_TOL:
+                raise AssertionError(f"step {t}: recurrent states differ by {err} > {STATE_TOL}")
+            obs = vec.step(step_actions)[0]
+    return {"steps": steps, "envs": n, "max_abs_state_err": worst, "tol": STATE_TOL,
+            "actions": f"max abs err {worst_act}" if continuous else "identical"}
+
+
+def run_dreamer_cli(algo: str, device: str, *, overrides=(), learning_starts: int = DREAMER_CLI_LEARNING_STARTS,
+                    train_iters=None, profile: bool = True) -> dict:
+    """DreamerV2 (``algo`` dreamer_v2: DV2_CLI_RUNS) or DreamerV1
+    (dreamer_v1: DV1_CLI_RUNS) through ``sheeprl_tpu_torch.cli.run`` on
+    ``device``, as ``run_dv3_cli`` runs DreamerV3: each run's loop rates,
+    peak memory, its kernels' launches and a draw from its own cache against
+    the plain versions, a profiled window; the first run resumed for one
+    iteration, its checkpoint's player held against the plain CPU player and
+    one gradient step on the card against the CPU."""
+    import tempfile
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+
+    exp, runs, kernels = {"dreamer_v2": (DV2_CLI_EXP, DV2_CLI_RUNS, DV2_CLI_KERNELS),
+                          "dreamer_v1": (DV1_CLI_EXP, DV1_CLI_RUNS, DV1_CLI_KERNELS)}[algo]
+    train_iters = DREAMER_CLI_TRAIN_ITERS[algo] if train_iters is None else train_iters
+    accel = "cpu" if device == "cpu" else "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix=f"{algo}_cli_") as root:
+        for i, (name, extra) in enumerate(runs.items()):
+            tag = f"{algo} {name}"
+            args = [*exp, *extra, f"fabric.accelerator={accel}", f"root_dir={root}", f"run_name={algo}_{name}",
+                    f"algo.learning_starts={learning_starts}", *overrides]
+            cfg = compose(overrides=args)
+            n = int(cfg.env.num_envs)
+            window = _TrainWindow(dv3, "train_steps", 0, 0, False, check=_dv3_draw_check)
+            res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={learning_starts + train_iters * n}"], device,
+                                                 window)
+            if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
+                raise AssertionError(f"{tag}: no test reward or no final checkpoint: {res}")
+            _require_launches(tag, launches, kernels[name], device)
+            _require_checked(tag, window, kernels[name])
+            row = {"env": cfg.env.id, "num_envs": n, "wall_s": wall, **_loop_rates(res, n, window),
+                   "peak_memory_bytes": peak, "launches": {k: v for k, v in launches.items() if v},
+                   "draw_vs_plain": window.checked, "test_reward": res["test_reward"]}
+            if profile and device != "cpu":
+                # a training call every 1 / replay_ratio iterations
+                every = max(1, round(1 / float(cfg.algo.replay_ratio)))
+                steps = learning_starts + (CLI_PROFILE_START + CLI_PROFILE_ITERS + 2) * every * n
+                row["profile"] = _profiled_run(dv3, "train_steps", args, steps, f"{algo}_{name}_profiled")
+            if i == 0:
+                row["resumed"] = _resume_one(args, res, n, root, f"{algo}_{name}_resumed")
+                row["player_vs_plain"] = dreamer_player_vs_plain(cfg, res["checkpoint"], device)
+                row["step_vs_cpu"] = dreamer_step_vs_cpu(cfg, res["checkpoint"], device)
+            out[name] = row
+    return out
+
+
+def run_dv2_cli(device: str, **kwargs) -> dict:
+    return run_dreamer_cli("dreamer_v2", device, **kwargs)
+
+
+def run_dv1_cli(device: str, **kwargs) -> dict:
+    return run_dreamer_cli("dreamer_v1", device, **kwargs)
+
+
 def mma_sync_peak(torch) -> dict:
     """TFLOP/s of independent ``mma.sync`` products (TF32 m16n8k8, bf16
     m16n8k16) on 264 blocks of 8 warps: the ceiling of the GRU step's
@@ -4037,12 +4249,25 @@ def main() -> int:
         phase("p2e_dv3_cli", run=label, card=smi, **row)
     torch.cuda.empty_cache()
 
+    # 10c. DreamerV2 and DreamerV1 through the CLI: the window gather, and
+    # DV2's prioritized starts (#3, #5, #6), on the shared Dreamer loop
+    dv2_cli = run_dv2_cli("cuda")
+    for label, row in dv2_cli.items():
+        phase("dv2_cli", run=label, card=smi, **row)
+    torch.cuda.empty_cache()
+    dv1_cli = run_dv1_cli("cuda")
+    for label, row in dv1_cli.items():
+        phase("dv1_cli", run=label, card=smi, **row)
+    torch.cuda.empty_cache()
+
     def cli_launches(name: str) -> dict:
         dv3 = sum(row["launches"].get(name, 0) for row in dv3_cli.values())
         p2e = sum(row["launches"].get(name, 0) for row in p2e_cli.values()) \
             + p2e_cli["gridworld"]["finetuning"]["launches"].get(name, 0)
         paths = (("dv3_cli", dv3), ("sac_cli", sac_cli["launches"].get(name, 0)),
-                 ("droq_cli", droq_cli["launches"].get(name, 0)), ("p2e_dv3_cli", p2e))
+                 ("droq_cli", droq_cli["launches"].get(name, 0)), ("p2e_dv3_cli", p2e),
+                 ("dv2_cli", sum(row["launches"].get(name, 0) for row in dv2_cli.values())),
+                 ("dv1_cli", sum(row["launches"].get(name, 0) for row in dv1_cli.values())))
         return {k: v for k, v in paths if v}
 
     # 11. purity

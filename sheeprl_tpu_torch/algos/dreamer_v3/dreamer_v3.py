@@ -16,12 +16,14 @@ against the lambda returns and the target critic, one critic step.
 Parameters and optimizer states are updated in place.
 
 :func:`train_steps` is the training block of ``main`` (:913-949): for each
-gradient step, the target critic's EMA (tau = 1 on the very first), then
-the step, on batches from :func:`~sheeprl_tpu_torch.data.device_buffer.sequence_batches`.
+gradient step, the target critic's EMA (tau = 1 on the very first, and
+always for DreamerV2's copies), then the step, on batches from :func:`~sheeprl_tpu_torch.data.device_buffer.sequence_batches`.
 
 :func:`main` is the env loop (``dreamer_v3.py:634-1049``),
-:func:`run_dreamer`, which Plan2Explore's two phases share through their
-own :class:`DreamerFamily`, on the port's stepping device vector env: random warm-up actions until
+:func:`run_dreamer`, which Plan2Explore's two phases, DreamerV2 and
+DreamerV1 share through their own :class:`DreamerFamily` (V2 and V1 with
+their own replay rows, players and env settings), on the port's stepping
+device vector env: random warm-up actions until
 ``learning_starts``, then the player's; every step's row and, where an
 episode ended, a reset row into an ``EnvIndependentReplayBuffer`` of
 ``SequentialReplayBuffer``s and its device cache; ``Ratio``-granted
@@ -501,21 +503,24 @@ def train_steps(
     noises: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
 ) -> List[Dict[str, torch.Tensor]]:
     """The training block of ``main``: ``per_rank_gradient_steps`` steps on
-    one draw of sequence batches, each after the EMA of the agent's target
-    critics (``target_pairs``).
-    ``noises`` optionally gives each step's pre-drawn noise.  Returns each
-    step's metrics."""
+    one draw of sequence batches, each after the update of the agent's
+    target critics (``target_pairs``) every
+    ``per_rank_target_network_update_freq`` steps: an EMA with
+    ``critic.tau``, tau 1 on the very first step and wherever the critic's
+    config has no ``tau`` (DreamerV2's hard copy).  ``noises`` optionally
+    gives each step's pre-drawn noise.  Returns each step's metrics."""
     critic_cfg = cfg.algo.critic
     device = next(state.agent.parameters()).device
+    pairs = state.agent.target_pairs()
     out = []
     with sequence_batches(
         rb, device_cache, device, per_rank_gradient_steps, int(cfg.algo.per_rank_batch_size),
         int(cfg.algo.per_rank_sequence_length), generator,
     ) as feed:
         for i, batch in enumerate(feed):
-            if state.gradient_steps % int(critic_cfg.per_rank_target_network_update_freq) == 0:
-                tau = 1.0 if state.gradient_steps == 0 else float(critic_cfg.tau)
-                for target, source in state.agent.target_pairs():
+            if pairs and state.gradient_steps % int(critic_cfg.per_rank_target_network_update_freq) == 0:
+                tau = 1.0 if state.gradient_steps == 0 else float(critic_cfg.get("tau", 1.0))
+                for target, source in pairs:
                     ema_(target, source, tau)
             state.opt_states, state.moments, state.metrics = state.train_fn(
                 state.opt_states, state.moments, batch, noise=None if noises is None else noises[i], generator=generator
@@ -546,9 +551,26 @@ class DreamerFamily:
     ``cfg``; None: a fresh start), its run (``setup(runtime, cfg,
     actions_dim, is_continuous, obs_space, state)`` -> :class:`DreamerRun`),
     whether the replay buffer comes from the state (``restore_rb(cfg,
-    state)``), whether the warm-up acts at random, and the closing test's
-    name.  Every family trains through :func:`train_steps` with its train
-    state's ``train_fn``."""
+    state)``), whether the warm-up acts at random, the closing test's name,
+    and the player (``make_player(modules, cfg, actions_dim, num_envs)``
+    around the run's
+    :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.DreamerPlayer`; None:
+    ``PlayerDV3``).  Every family trains through :func:`train_steps` with
+    its train state's ``train_fn``.
+
+    ``generation`` (3, 2 or 1) is the Dreamer whose loop conventions the
+    family keeps.  DreamerV3 writes row t before the step (o_t, the action
+    taken at it, the reward that led to it) and its reset rows from the
+    final observations, stacks no frames (``env.frame_stack = -1``), takes
+    power-of-two screens and tests sampling.  DreamerV2 seeds the buffer
+    with a zero-action row, writes row t after the step (the observation
+    reached, the action and reward that led to it), ``is_first`` from the
+    previous step's ends and its reset rows from the new episodes' first
+    observations (``dreamer_v2.py:565-664``), sets ``env.frame_stack = 1``,
+    tests greedily and keeps only the sequential buffer.  DreamerV1 is V2
+    without the ``is_first`` column, its player's exploration amount
+    decaying with the policy step, which the loop passes it and logs
+    (``Params/exploration_amount``)."""
 
     name: str
     load_state: Callable
@@ -556,6 +578,8 @@ class DreamerFamily:
     restore_rb: Callable
     random_warmup: bool = True
     test_name: str = ""
+    make_player: Optional[Callable] = None
+    generation: int = 3
 
 
 def resume_state(cfg):
@@ -608,16 +632,25 @@ def main(runtime, cfg):
     return run_dreamer(runtime, cfg, DV3_FAMILY)
 
 
+def _dv3_player(modules, cfg, actions_dim, num_envs):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3
+
+    wm_cfg = cfg.algo.world_model
+    return PlayerDV3(modules, actions_dim, num_envs, wm_cfg.stochastic_size, wm_cfg.recurrent_model.recurrent_state_size,
+                     discrete_size=wm_cfg.discrete_size, decoupled_rssm=bool(wm_cfg.decoupled_rssm))
+
+
 def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
-    """The env loop that DreamerV3 and Plan2Explore's two phases share
-    (module docstring).  Returns the run's summary: log dir, last
+    """The env loop that DreamerV3, Plan2Explore's two phases, DreamerV2 and
+    DreamerV1 share (module docstring; their differences are fields of
+    :class:`DreamerFamily`).  Returns the run's summary: log dir, last
     checkpoint, policy and gradient steps, iterations, test reward, whether
     the player had switched to the run's ``train_actor`` by the end, and the
     seconds spent in the warm-up iterations, in the iterations from
     ``learning_starts`` on and in their gradient steps."""
     import time
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import DreamerPlayer, PlayerDV3, WorldModel
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import DreamerPlayer, WorldModel
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
@@ -643,9 +676,14 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
     state = family.load_state(cfg)
     resumed = bool(cfg.checkpoint.resume_from)
 
-    cfg.env.frame_stack = -1
-    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
+    v3 = family.generation == 3
+    cfg.env.frame_stack = -1 if v3 else 1
+    if v3 and 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
+    if not v3 and str(cfg.buffer.get("type", "sequential")).lower() != "sequential":
+        raise NotImplementedError(
+            f"buffer.type={cfg.buffer.type} (the episode buffer, host only) waits for ROADMAP A3; use buffer.type=sequential"
+        )
 
     logger = get_logger(runtime, cfg)
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
@@ -681,16 +719,10 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
     run = family.setup(runtime, cfg, actions_dim, is_continuous, observation_space, state)
     train_state = run.train_state
     wm = train_state.agent.world_model
-    wm_cfg = cfg.algo.world_model
-    player = PlayerDV3(
-        DreamerPlayer(WorldModel(wm.encoder, wm.rssm), run.player_actor),
-        actions_dim,
-        total_envs,
-        wm_cfg.stochastic_size,
-        wm_cfg.recurrent_model.recurrent_state_size,
-        discrete_size=wm_cfg.discrete_size,
-        decoupled_rssm=bool(wm_cfg.decoupled_rssm),
-    )
+    make_player = family.make_player or _dv3_player
+    player = make_player(DreamerPlayer(WorldModel(wm.encoder, wm.rssm), run.player_actor), cfg, actions_dim, total_envs)
+    is_first_column, exploration_decay = family.generation != 1, family.generation == 1
+    act_kwargs = (lambda: {"step": policy_step}) if exploration_decay else dict
     save_configs(cfg, log_dir)
 
     aggregator = None if MetricAggregator.disabled else instantiate(dict(cfg.metric.aggregator))
@@ -729,10 +761,25 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
     obs = envs.reset(seed=cfg.seed)[0]
     for k in obs_keys:
         step_data[k] = obs[k][np.newaxis]
-    step_data["rewards"] = np.zeros((1, total_envs, 1))
-    step_data["truncated"] = np.zeros((1, total_envs, 1))
-    step_data["terminated"] = np.zeros((1, total_envs, 1))
-    step_data["is_first"] = np.ones_like(step_data["terminated"])
+    if v3:
+        step_data["rewards"] = np.zeros((1, total_envs, 1))
+        step_data["truncated"] = np.zeros((1, total_envs, 1))
+        step_data["terminated"] = np.zeros((1, total_envs, 1))
+        step_data["is_first"] = np.ones_like(step_data["terminated"])
+    else:
+        # the zero-action seed row
+        step_data["terminated"] = np.zeros((1, total_envs, 1))
+        step_data["truncated"] = np.zeros((1, total_envs, 1))
+        if cfg.dry_run and family.generation == 2:
+            step_data["truncated"] = step_data["truncated"] + 1
+            step_data["terminated"] = step_data["terminated"] + 1
+        step_data["actions"] = np.zeros((1, total_envs, int(np.sum(actions_dim))))
+        step_data["rewards"] = np.zeros((1, total_envs, 1))
+        if is_first_column:
+            step_data["is_first"] = np.ones_like(step_data["terminated"])
+        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+        if device_cache is not None:
+            device_cache.add(step_data)
     player.init_states()
 
     metric_fetch_gate = MetricFetchGate(cfg.metric.get("fetch_every", 1))
@@ -759,20 +806,24 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
                     {k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=total_envs, device=runtime.device
                 )
                 mask = {k: v for k, v in prepared.items() if k.startswith("mask")} or None
-                action_list = player.get_actions(prepared, False, runtime.generator, mask)
+                action_list = player.get_actions(prepared, False, runtime.generator, mask, **act_kwargs())
                 actions, real_actions = fetch_actions(action_list, actions_dim, is_continuous, total_envs)
 
-            step_data["actions"] = np.asarray(actions).reshape(1, total_envs, -1)
-            rb.add(step_data, validate_args=cfg.buffer.validate_args)
-            if device_cache is not None:
-                device_cache.add(step_data)
+            if v3:
+                step_data["actions"] = np.asarray(actions).reshape(1, total_envs, -1)
+                rb.add(step_data, validate_args=cfg.buffer.validate_args)
+                if device_cache is not None:
+                    device_cache.add(step_data)
+            elif is_first_column:
+                step_data["is_first"] = np.logical_or(step_data["terminated"], step_data["truncated"]).astype(np.float32)
 
             next_obs, rewards, terminated, truncated, infos = envs.step(
                 np.asarray(real_actions).reshape(total_envs, *envs.single_action_space.shape)
             )
             dones = np.logical_or(terminated, truncated).astype(np.uint8)
 
-        step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        if v3:
+            step_data["is_first"] = np.zeros_like(step_data["terminated"])
 
         if cfg.metric.log_level > 0 and "final_info" in infos:
             ep = infos["final_info"]["episode"]
@@ -789,17 +840,37 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
                     real_next_obs[k][idx] = v
 
         for k in obs_keys:
-            step_data[k] = next_obs[k][np.newaxis]
+            step_data[k] = (next_obs if v3 else real_next_obs)[k][np.newaxis]
         obs = next_obs
 
         rewards = rewards.reshape((1, total_envs, -1))
         step_data["terminated"] = terminated.reshape((1, total_envs, -1)).astype(np.float32)
         step_data["truncated"] = truncated.reshape((1, total_envs, -1)).astype(np.float32)
         step_data["rewards"] = clip_rewards_fn(rewards)
+        if not v3:
+            step_data["actions"] = np.asarray(actions).reshape(1, total_envs, -1)
+            rb.add(step_data, validate_args=cfg.buffer.validate_args)
+            if device_cache is not None:
+                device_cache.add(step_data)
 
         dones_idxes = dones.nonzero()[0].tolist()
         reset_envs = len(dones_idxes)
-        if reset_envs > 0:
+        if reset_envs > 0 and not v3:
+            # the new episodes' first rows
+            reset_data = {k: (next_obs[k][dones_idxes])[np.newaxis] for k in obs_keys}
+            reset_data["terminated"] = np.zeros((1, reset_envs, 1))
+            reset_data["truncated"] = np.zeros((1, reset_envs, 1))
+            reset_data["actions"] = np.zeros((1, reset_envs, int(np.sum(actions_dim))))
+            reset_data["rewards"] = np.zeros((1, reset_envs, 1))
+            if is_first_column:
+                reset_data["is_first"] = np.ones_like(reset_data["terminated"])
+            rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            if device_cache is not None:
+                device_cache.add(reset_data, dones_idxes)
+            step_data["terminated"][:, dones_idxes] = 0.0
+            step_data["truncated"][:, dones_idxes] = 0.0
+            player.init_states(dones_idxes)
+        elif reset_envs > 0:
             reset_data = {}
             for k in obs_keys:
                 reset_data[k] = (real_next_obs[k][dones_idxes])[np.newaxis]
@@ -833,6 +904,8 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
                 if aggregator and not aggregator.disabled and metric_fetch_gate():
                     for k, v in fetch_metrics(train_state.metrics).items():
                         aggregator.update(k, v)
+                    if exploration_decay:
+                        aggregator.update("Params/exploration_amount", player.get_expl_amount(policy_step))
 
         # ------------------------------------------------------ logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
@@ -902,7 +975,7 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
     if cfg.algo.run_test:
         if run.test_actor is not None:
             player.agent.actor = run.test_actor
-        test_rew = test(player, runtime, cfg, log_dir, family.test_name, greedy=False)
+        test_rew = test(player, runtime, cfg, log_dir, family.test_name, greedy=not v3)
         if logger:
             logger.log_metrics({"Test/cumulative_reward": test_rew}, policy_step)
     if logger:

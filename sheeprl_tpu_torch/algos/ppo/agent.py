@@ -221,7 +221,7 @@ def build_agent(
         raise NotImplementedError("PPO's CNN encoder is not ported yet: ROADMAP A2 (the pixel envs)")
     if runtime.precision != "32-true":
         raise NotImplementedError(
-            f"PPO/A2C at fabric.precision={runtime.precision} is not ported yet (ROADMAP A1's remainder); use 32-true"
+            f"PPO/A2C at fabric.precision={runtime.precision} is not ported yet (ROADMAP A2); use 32-true"
         )
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     agent = PPOAgentModule(

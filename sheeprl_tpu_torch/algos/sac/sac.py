@@ -239,17 +239,21 @@ class OffPolicyFamily:
     and its dispatch (``dispatch(state, rb, device_cache, cfg, ema_flags,
     policy_step, beta_fn, pending_rows, generator)`` -> metrics);
     ``batched``: whether ``algo.dispatch_batch`` applies (else every
-    iteration's gradient steps are one dispatch)."""
+    iteration's gradient steps are one dispatch); ``benchmark_pin``: whether
+    ``run_benchmarks`` pins one gradient step an iteration (SAC's rule,
+    ``sac.py:471``; DroQ's ratio holds under it)."""
 
     name: str
     build_agent: Callable
     make_train_state: Callable
     dispatch: Callable
     batched: bool = True
+    benchmark_pin: bool = False
 
 
 # the dispatch is looked up at each call, so that a caller may wrap the module's train_dispatch
-SAC_FAMILY = OffPolicyFamily("SAC", build_agent, make_train_state, lambda *a, **k: train_dispatch(*a, **k))
+SAC_FAMILY = OffPolicyFamily("SAC", build_agent, make_train_state, lambda *a, **k: train_dispatch(*a, **k),
+                             benchmark_pin=True)
 
 
 @register_algorithm()
@@ -427,7 +431,7 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
         if iter_num >= learning_starts:
             per_rank_gradient_steps = (
                 ratio((policy_step - prefill_steps + policy_steps_per_iter) / world_size)
-                if not cfg.get("run_benchmarks", False)
+                if not (family.benchmark_pin and cfg.get("run_benchmarks", False))
                 else 1
             )
             if per_rank_gradient_steps > 0:

@@ -115,6 +115,8 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
     """The training app: ``python -m sheeprl_tpu_torch exp=... [overrides]``."""
     overrides = list(args if args is not None else sys.argv[1:])
     cfg = compose(config_name="config", overrides=overrides)
+    if cfg.get("faults"):
+        raise NotImplementedError("faults=<spec> (the fault-injection harness) waits for ROADMAP A6")
     if cfg.checkpoint.resume_from == "auto":
         raise NotImplementedError("checkpoint.resume_from=auto (the newest valid checkpoint) waits for ROADMAP A6")
     if cfg.checkpoint.resume_from:

@@ -1,7 +1,8 @@
 """Building blocks as torch modules.
 
 Counterpart of ``sheeprl_tpu/models/models.py`` (``resolve_activation``,
-``MLP``, ``ln_act_apply``, ``gru_cell_apply``, ``LayerNormGRUCell``).  The
+``MLP``, ``ln_act_apply``, ``gru_cell_apply``, ``LayerNormGRUCell``, with
+or without its dense's bias).  The
 LayerNorms keep flax's formulas, not ``torch.nn.LayerNorm``'s: statistics
 in f32, the fast variance ``max(E[x^2] - E[x]^2, 0)``, then
 ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
@@ -28,6 +29,7 @@ __all__ = [
     "flax_init_",
     "lecun_normal_",
     "gru_cell_apply",
+    "gru_cell_biased",
     "layer_norm",
     "layer_norm_stacked",
     "ln_act_apply",
@@ -185,6 +187,24 @@ def gru_cell_apply(
     return out.reshape(*lead, -1)
 
 
+def gru_cell_biased(cell: "LayerNormGRUCell", h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One step of a cell with a bias (flax's ``LayerNormGRUCell(use_bias=True)``,
+    DreamerV2's): the dense over [h, x] with its bias in the compute dtype,
+    then the LayerNorm, gates and state update in f32.  The step kernel
+    (``csrc/gru_cell.cu``) has no bias, as the JAX package's fused cell has
+    none, so this runs in PyTorch on any device."""
+    dt = cell.dtype
+    inp = torch.cat([h.to(dt), x.to(dt)], -1)
+    w = cell.weight if dt == torch.float32 else cell.weight.to(dt)
+    b = cell.bias if dt == torch.float32 else cell.bias.to(dt)
+    parts = cell.norm((inp @ w + b).float())
+    reset, cand, update = torch.chunk(parts, 3, -1)
+    reset = torch.sigmoid(reset)
+    cand = torch.tanh(reset * cand)
+    update = torch.sigmoid(update - 1.0)
+    return update * cand + (1.0 - update) * h.float()
+
+
 class LayerNormGRUCell(nn.Module):
     """Hafner-style GRU cell: one bias-free dense over [h, x] -> LayerNorm
     over 3H -> reset/candidate/update with the update-gate ``-1`` bias.
@@ -192,7 +212,10 @@ class LayerNormGRUCell(nn.Module):
     ``weight`` is (H + X, 3H), the flax ``Dense_0/kernel`` layout, which is
     the layout the kernel reads.  ``impl`` is the step function
     (``ops.gru_cell.gru_cell``); a comparison may set it to
-    ``gru_cell_plain`` to run the plain version on the card."""
+    ``gru_cell_plain`` to run the plain version on the card.  With
+    ``use_bias`` (flax's ``Dense_0/bias``, DreamerV2's cell) the step is
+    :func:`gru_cell_biased` and never the kernel, as in the JAX package,
+    whose fused cell takes no bias."""
 
     def __init__(
         self,
@@ -200,6 +223,7 @@ class LayerNormGRUCell(nn.Module):
         hidden_size: int,
         *,
         fused: bool = False,
+        use_bias: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
@@ -213,10 +237,13 @@ class LayerNormGRUCell(nn.Module):
         self.weight = nn.Parameter(
             nn.init.trunc_normal_(torch.empty(k, 3 * self.hidden_size, device=device), 0.0, std, -2 * std, 2 * std)
         )
+        self.bias = nn.Parameter(torch.zeros(3 * self.hidden_size, device=device)) if use_bias else None
         self.norm = LayerNorm(3 * self.hidden_size, eps=1e-6, device=device)
         self.impl = gru_cell
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is not None:
+            return gru_cell_biased(self, h, x)
         return gru_cell_apply(self, h, x)
 
 

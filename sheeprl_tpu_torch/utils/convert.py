@@ -1,5 +1,5 @@
-"""Carry the JAX package's DreamerV3, Plan2Explore-DreamerV3, SAC, DroQ and
-PPO/A2C state into the port's modules, and back.
+"""Carry the JAX package's DreamerV3, Plan2Explore-DreamerV3, DreamerV2,
+DreamerV1, SAC, DroQ and PPO/A2C state into the port's modules, and back.
 
 ``flax_to_torch(tree, agent)`` turns a parameter tree of ``sheeprl_tpu``
 (numpy arrays, as a checkpoint holds them) into a ``state_dict``:
@@ -10,6 +10,14 @@ PPO/A2C state into the port's modules, and back.
 - for a :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.DreamerAgent`,
   the whole ``params`` tree ``{"world_model", "actor", "critic",
   "target_critic"}``;
+- for a DreamerV2 or DreamerV1 agent (DreamerV3's containers around
+  blocks that name their layout, ``flax_layout``; :func:`layout`), the same
+  trees in their layouts: ``V2MLP_0`` and ``DenseActLn_<i>`` trunks with
+  their biases, VALID convs, DreamerV2's GRU cell with its ``Dense_0/bias``,
+  DreamerV1's ``recurrent_model/Dense_0`` and flax ``GRUCell_0`` (its
+  ``ir``/``iz``/``in`` and ``hr``/``hz``/``hn`` leaves side by side as the
+  port's gate blocks), a continue model only with ``use_continues``, and no
+  ``target_critic`` for DreamerV1;
 - for a :class:`~sheeprl_tpu_torch.algos.sac.agent.SACAgent`, the SAC tree
   ``{"actor", "critic", "target_critic", "log_alpha"}``: the actor's
   ``MLP_0/Dense_{0,1}`` trunk and ``Dense_{0,1}`` mean/log-std heads, the
@@ -73,6 +81,7 @@ __all__ = [
     "flatten_tree",
     "flax_to_torch",
     "group_to_flax",
+    "layout",
     "load_flax_params",
     "load_group_params",
     "moments_to_torch",
@@ -149,9 +158,11 @@ class _Mapper:
         if self.has(f"{src}/LayerNorm_0/scale"):
             self.norm(f"{src}/LayerNorm_0", f"{dst}.norm")
 
-    def mlp(self, src: str, dst: str, layers: int, head: bool) -> None:
+    def mlp(self, src: str, dst: str, layers: int, head: bool, block: str = "LinearLnAct") -> None:
+        """DreamerV3's ``DreamerMLP`` (``block`` LinearLnAct) or DreamerV2's
+        ``V2MLP`` (DenseActLn)."""
         for i in range(layers):
-            self.linear_ln_act(f"{src}/LinearLnAct_{i}", f"{dst}.layers.{i}")
+            self.linear_ln_act(f"{src}/{block}_{i}", f"{dst}.layers.{i}")
         if head:
             self.dense(f"{src}/Dense_0", f"{dst}.head")
 
@@ -160,55 +171,95 @@ class _Mapper:
         self.put(dst, np.concatenate([self.take(src) for src in srcs], -1))
 
 
+def layout(module: torch.nn.Module) -> str:
+    """Which package's tree ``module`` maps to: ``"dreamer_v1"`` or
+    ``"dreamer_v2"`` where it holds their blocks (each marks itself with
+    ``flax_layout``), else ``"dreamer_v3"``."""
+    kinds = {getattr(sub, "flax_layout", None) for sub in module.modules()}
+    return "dreamer_v1" if "dreamer_v1" in kinds else "dreamer_v2" if "dreamer_v2" in kinds else "dreamer_v3"
+
+
+def _conv_stack(m: _Mapper, src: str, dst: str, n: int, norms, kind: str) -> None:
+    """``n`` flax ``Conv_<i>`` (HWIO) or ``ConvTranspose_<i>`` ((kh, kw, in,
+    out), flipped for torch) kernels, their biases and ``LayerNorm_<i>``."""
+    attr = "convs" if kind == "Conv" else "deconvs"
+    for i in range(n):
+        kernel = m.take(f"{src}/{kind}_{i}/kernel")
+        kernel = kernel.transpose(3, 2, 0, 1) if kind == "Conv" else kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+        m.put(f"{dst}.{attr}.{i}.weight", kernel)
+        if m.has(f"{src}/{kind}_{i}/bias"):
+            m.put(f"{dst}.{attr}.{i}.bias", m.take(f"{src}/{kind}_{i}/bias"))
+    for i in range(len(norms or ())):
+        m.norm(f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}")
+
+
+def _trunk(module: torch.nn.Module) -> tuple:
+    """The flax names of a Dreamer module's MLP trunks and their blocks:
+    DreamerV3's ``DreamerMLP_0`` of ``LinearLnAct_<i>``, V2's and V1's
+    ``V2MLP_0`` of ``DenseActLn_<i>``."""
+    return ("DreamerMLP_0", "LinearLnAct") if layout(module) == "dreamer_v3" else ("V2MLP_0", "DenseActLn")
+
+
 def _encoder_rssm(m: _Mapper, wm, src: str, dst: str) -> None:
+    """The encoder (conv stages, the MLP trunk) and the RSSM: the recurrent
+    model (DreamerV3: its learnable initial state, ``LinearLnAct_0`` and the
+    bias-free ``LayerNormGRUCell_0``; V2: ``DenseActLn_0`` and the cell with
+    its ``Dense_0/bias``; V1: ``Dense_0`` and flax's ``GRUCell_0``, its
+    ``ir``/``iz``/``in`` and ``hr``/``hz``/``hn`` leaves side by side) and
+    the one-layer representation and transition models."""
+    trunk, block = _trunk(wm)
     enc = f"{src}/encoder/params"
     cnn = wm.encoder.cnn_encoder
     if cnn is not None:
-        for i in range(len(cnn.convs)):
-            out = f"{dst}.encoder.cnn_encoder.convs.{i}"
-            m.put(f"{out}.weight", m.take(f"{enc}/cnn_encoder/Conv_{i}/kernel").transpose(3, 2, 0, 1))
-            if m.has(f"{enc}/cnn_encoder/Conv_{i}/bias"):
-                m.put(f"{out}.bias", m.take(f"{enc}/cnn_encoder/Conv_{i}/bias"))
-            if cnn.norms is not None:
-                m.norm(f"{enc}/cnn_encoder/LayerNorm_{i}", f"{dst}.encoder.cnn_encoder.norms.{i}")
+        _conv_stack(m, f"{enc}/cnn_encoder", f"{dst}.encoder.cnn_encoder", len(cnn.convs), cnn.norms, "Conv")
     if wm.encoder.mlp_encoder is not None:
-        m.mlp(f"{enc}/mlp_encoder/DreamerMLP_0", f"{dst}.encoder.mlp_encoder.mlp", len(wm.encoder.mlp_encoder.mlp.layers), head=False)
-    rssm, out = f"{src}/rssm/params", f"{dst}.rssm"
-    m.put(f"{out}.initial_recurrent_state", m.take(f"{rssm}/initial_recurrent_state"))
-    m.linear_ln_act(f"{rssm}/recurrent_model/LinearLnAct_0", f"{out}.recurrent_model.mlp")
-    m.put(f"{out}.recurrent_model.gru.weight", m.take(f"{rssm}/recurrent_model/LayerNormGRUCell_0/Dense_0/kernel"))
-    m.norm(f"{rssm}/recurrent_model/LayerNormGRUCell_0/LayerNorm_0", f"{out}.recurrent_model.gru.norm")
-    m.mlp(f"{rssm}/representation_model", f"{out}.representation_model", 1, head=True)
-    m.mlp(f"{rssm}/transition_model", f"{out}.transition_model", 1, head=True)
+        m.mlp(f"{enc}/mlp_encoder/{trunk}", f"{dst}.encoder.mlp_encoder.mlp", len(wm.encoder.mlp_encoder.mlp.layers),
+              head=False, block=block)
+    rssm, out = f"{src}/rssm/params/", f"{dst}.rssm."
+    if layout(wm) == "dreamer_v1":
+        gru = f"{rssm}recurrent_model/GRUCell_0"
+        m.dense(f"{rssm}recurrent_model/Dense_0", f"{out}recurrent_model.dense")
+        m.gates([f"{gru}/i{g}/kernel" for g in "rzn"], f"{out}recurrent_model.gru.input_kernel")
+        m.gates([f"{gru}/i{g}/bias" for g in "rzn"], f"{out}recurrent_model.gru.input_bias")
+        m.gates([f"{gru}/h{g}/kernel" for g in "rzn"], f"{out}recurrent_model.gru.hidden_kernel")
+        m.put(f"{out}recurrent_model.gru.hidden_bias", m.take(f"{gru}/hn/bias"))
+    else:
+        if layout(wm) == "dreamer_v3":
+            m.put(f"{out}initial_recurrent_state", m.take(f"{rssm}initial_recurrent_state"))
+        gru = f"{rssm}recurrent_model/LayerNormGRUCell_0"
+        m.linear_ln_act(f"{rssm}recurrent_model/{block}_0", f"{out}recurrent_model.mlp")
+        m.put(f"{out}recurrent_model.gru.weight", m.take(f"{gru}/Dense_0/kernel"))
+        if m.has(f"{gru}/Dense_0/bias"):
+            m.put(f"{out}recurrent_model.gru.bias", m.take(f"{gru}/Dense_0/bias"))
+        m.norm(f"{gru}/LayerNorm_0", f"{out}recurrent_model.gru.norm")
+    for name in ("representation_model", "transition_model"):
+        m.mlp(f"{rssm}{name}", f"{out}{name}", 1, head=True, block=block)
 
 
 def _training_heads(m: _Mapper, wm, src: str, dst: str) -> None:
-    """Observation, reward and continue models."""
+    """The observation model (the conv decoder's dense and flipped
+    transposed convs, the MLP trunk and ``Dense_<i>`` heads), the reward
+    model and the continue model where the world model has one."""
+    trunk, block = _trunk(wm)
     obs = f"{src}/observation_model/params"
     cnn = wm.observation_model.cnn_decoder
     if cnn is not None:
         out = f"{dst}.observation_model.cnn_decoder"
         m.dense(f"{obs}/cnn_decoder/Dense_0", f"{out}.dense")
-        for i in range(len(cnn.deconvs)):
-            kernel = m.take(f"{obs}/cnn_decoder/ConvTranspose_{i}/kernel")
-            m.put(f"{out}.deconvs.{i}.weight", kernel[::-1, ::-1].transpose(2, 3, 0, 1))
-            if m.has(f"{obs}/cnn_decoder/ConvTranspose_{i}/bias"):
-                m.put(f"{out}.deconvs.{i}.bias", m.take(f"{obs}/cnn_decoder/ConvTranspose_{i}/bias"))
-        if cnn.norms is not None:
-            for i in range(len(cnn.norms)):
-                m.norm(f"{obs}/cnn_decoder/LayerNorm_{i}", f"{out}.norms.{i}")
+        _conv_stack(m, f"{obs}/cnn_decoder", out, len(cnn.deconvs), cnn.norms, "ConvTranspose")
     mlp = wm.observation_model.mlp_decoder
     if mlp is not None:
         out = f"{dst}.observation_model.mlp_decoder"
-        m.mlp(f"{obs}/mlp_decoder/DreamerMLP_0", f"{out}.mlp", len(mlp.mlp.layers), head=False)
+        m.mlp(f"{obs}/mlp_decoder/{trunk}", f"{out}.mlp", len(mlp.mlp.layers), head=False, block=block)
         for i in range(len(mlp.heads)):
             m.dense(f"{obs}/mlp_decoder/Dense_{i}", f"{out}.heads.{i}")
-    m.mlp(f"{src}/reward_model/params", f"{dst}.reward_model", len(wm.reward_model.layers), head=True)
-    m.mlp(f"{src}/continue_model/params", f"{dst}.continue_model", len(wm.continue_model.layers), head=True)
+    for name in ("reward_model", "continue_model"):
+        if getattr(wm, name) is not None:
+            m.mlp(f"{src}/{name}/params", f"{dst}.{name}", len(getattr(wm, name).layers), head=True, block=block)
 
 
 def _actor(m: _Mapper, actor, src: str, dst: str) -> None:
-    m.mlp(f"{src}/params", f"{dst}.trunk", len(actor.trunk.layers), head=False)
+    m.mlp(f"{src}/params", f"{dst}.trunk", len(actor.trunk.layers), head=False, block=_trunk(actor)[1])
     for i in range(len(actor.heads)):
         m.dense(f"{src}/params/Dense_{i}", f"{dst}.heads.{i}")
 
@@ -385,6 +436,11 @@ def _is_full_agent(agent: torch.nn.Module) -> bool:
     return hasattr(agent, "critic")
 
 
+def _critics(agent: torch.nn.Module) -> tuple:
+    """The agent's critic and, where it keeps one (not DreamerV1), its target critic."""
+    return ("critic", "target_critic") if hasattr(agent, "target_critic") else ("critic",)
+
+
 def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` for ``agent`` (a ``DreamerPlayer``, a
     ``DreamerAgent``, a ``P2EDV3Agent``, a ``SACAgent`` or a
@@ -401,7 +457,7 @@ def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, tor
     elif _is_sac(agent):
         expect = {"actor", "critic", "target_critic", "log_alpha"}
     elif _is_full_agent(agent):
-        expect = {"world_model", "actor", "critic", "target_critic"}
+        expect = {"world_model", "actor", *_critics(agent)}
     else:
         expect = {"world_model", "actor"}
     if set(tree) != expect:
@@ -494,8 +550,8 @@ def _map_agent(m, agent: torch.nn.Module) -> None:
     _encoder_rssm(m, wm, "world_model", "world_model")
     if _is_full_agent(agent):
         _training_heads(m, wm, "world_model", "world_model")
-        for name in ("critic", "target_critic"):
-            m.mlp(f"{name}/params", name, len(getattr(agent, name).layers), head=True)
+        for name in _critics(agent):
+            m.mlp(f"{name}/params", name, len(getattr(agent, name).layers), head=True, block=_trunk(agent.critic)[1])
     _actor(m, agent.actor, "actor", "actor")
 
 
@@ -513,7 +569,7 @@ def _map_group(m, module: torch.nn.Module, group: str) -> None:
     elif hasattr(module, "biases"):
         _sac_critic(m, module, group, group)
     else:
-        m.mlp(f"{group}/params", group, len(module.layers), head=True)
+        m.mlp(f"{group}/params", group, len(module.layers), head=True, block=_trunk(module)[1])
 
 
 def _group_params(tree: Dict[str, Any], module: torch.nn.Module, group: str) -> Dict[str, torch.Tensor]:

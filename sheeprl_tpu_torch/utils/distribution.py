@@ -1,12 +1,12 @@
 """The distributions DreamerV3 samples from and trains on, on torch tensors.
 
 Counterpart of the matching classes of ``sheeprl_tpu/utils/distribution.py``
-(Normal, Independent, TanhNormal, OneHotCategorical,
+(Normal, Independent, TanhNormal, TruncatedNormal, OneHotCategorical,
 OneHotCategoricalStraightThrough, Bernoulli, BernoulliSafeMode,
 SymlogDistribution, MSEDistribution, TwoHotEncodingDistribution and
 ``kl_divergence``).  Sampling never uses the global RNG: it
-takes explicit noise (standard normals, or Gumbel noise for the categorical
-draws) or an explicit ``torch.Generator``.  A categorical draw is
+takes explicit noise (standard normals, uniforms for the truncated normal,
+or Gumbel noise for the categorical draws) or an explicit ``torch.Generator``.  A categorical draw is
 ``argmax(normalized_logits + gumbel)``, the same Gumbel-max form that
 ``jax.random.categorical`` uses, so both packages agree when they are handed
 the same noise.  Straight-through values are ``(hard + p) - p``, the order
@@ -34,11 +34,13 @@ __all__ = [
     "OneHotCategoricalStraightThrough",
     "SymlogDistribution",
     "TanhNormal",
+    "TruncatedNormal",
     "TwoHotEncodingDistribution",
     "gumbel_noise",
     "kl_divergence",
     "normal_noise",
     "straight_through",
+    "truncated_uniform_noise",
 ]
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
@@ -53,6 +55,12 @@ def gumbel_noise(shape, *, like: torch.Tensor, generator: Optional[torch.Generat
 
 def normal_noise(shape, *, like: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def truncated_uniform_noise(shape, *, like: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The uniforms of :meth:`TruncatedNormal.rsample`: in [1e-6, 1 - 1e-6)."""
+    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    return 1e-6 + u * (1.0 - 2e-6)
 
 
 class Normal:
@@ -133,6 +141,52 @@ class TanhNormal:
     @property
     def mean(self):
         return torch.tanh(self.base.loc)
+
+
+class TruncatedNormal:
+    """Normal truncated to [low, high] (DreamerV2's and V1's continuous action
+    head).  ``rsample`` inverts the CDF at uniforms in (1e-6, 1 - 1e-6)
+    through ``erfinv`` and clips to [low + 1e-6, high - 1e-6]."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: float = -1.0, high: float = 1.0):
+        self.loc, self.scale, self.low, self.high = loc, scale, low, high
+        self._a = (low - loc) / scale
+        self._b = (high - loc) / scale
+        self._phi_a = 0.5 * (1 + torch.erf(self._a / math.sqrt(2.0)))
+        self._phi_b = 0.5 * (1 + torch.erf(self._b / math.sqrt(2.0)))
+        self._z = torch.clamp(self._phi_b - self._phi_a, min=1e-8)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        xi = (x - self.loc) / self.scale
+        return -(xi**2) / 2 - _HALF_LOG_2PI - torch.log(self.scale) - torch.log(self._z)
+
+    def rsample(self, noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
+        """``noise``: uniforms in (1e-6, 1 - 1e-6) of the batch shape."""
+        shape = torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+        u = noise if noise is not None else truncated_uniform_noise(shape, like=self.loc, generator=generator)
+        p = self._phi_a + u * (self._phi_b - self._phi_a)
+        x = self.loc + self.scale * math.sqrt(2.0) * torch.special.erfinv(2 * p - 1)
+        return torch.clamp(x, self.low + 1e-6, self.high - 1e-6)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.clamp(self.loc, self.low, self.high)
+
+    @staticmethod
+    def _pdf(t: torch.Tensor) -> torch.Tensor:
+        return torch.exp(-(t**2) / 2) / math.sqrt(2 * math.pi)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc + self.scale * (self._pdf(self._a) - self._pdf(self._b)) / self._z
+
+    def entropy(self) -> torch.Tensor:
+        return (
+            0.5 * math.log(2 * math.pi * math.e)
+            + torch.log(self.scale)
+            + torch.log(self._z)
+            + (self._a * self._pdf(self._a) - self._b * self._pdf(self._b)) / (2 * self._z)
+        )
 
 
 class Categorical:

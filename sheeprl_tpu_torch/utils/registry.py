@@ -23,6 +23,8 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.a2c.a2c",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
     "sheeprl_tpu_torch.algos.sac.sac",
     "sheeprl_tpu_torch.algos.droq.droq",
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",

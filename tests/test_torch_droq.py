@@ -407,6 +407,45 @@ def test_replay_rows_match_jax_main(tmp_path, monkeypatch):
     assert got["terminated"].sum() > 0 and got["truncated"].sum() > 0
 
 
+def test_run_benchmarks_keeps_the_replay_ratio_as_jax_does(tmp_path, monkeypatch):
+    """Under ``run_benchmarks=True`` DroQ takes ``ratio(...)`` gradient steps
+    an iteration, as JAX's loop does (``droq.py:368``), where SAC pins one
+    (its family's ``benchmark_pin``): the port's count equals the sum of
+    what JAX's ratio granted, the counter env behind both loops."""
+    common = ["exp=droq", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax", "fabric.accelerator=cpu",
+              "metric.log_level=0", "buffer.memmap=False", "algo.run_test=False", f"env.num_envs={N_ENVS}",
+              "algo.mlp_keys.encoder=[state]", "algo.hidden_size=8", "algo.per_rank_batch_size=4",
+              f"algo.total_steps={8 * N_ENVS}", f"algo.learning_starts={4 * N_ENVS}", "algo.replay_ratio=0.5",
+              "buffer.size=60", "seed=5", "env.sync_env=True", "run_benchmarks=True"]
+    granted = []
+
+    class CountingRatio(jax_droq.Ratio):
+        def __call__(self, step):
+            granted.append(super().__call__(step))
+            return granted[-1]
+
+    jax_actions = _draws()
+    monkeypatch.setattr(jax_droq, "Ratio", CountingRatio)
+    monkeypatch.setattr(gym.vector, "SyncVectorEnv", lambda thunks, **kw: _counter_envs(jax_actions))
+    jax_run([f"root_dir={tmp_path}/jax", "run_name=bench", *common])
+    monkeypatch.setattr(port_env, "make_train_envs", lambda cfg, runtime, **kw: _FedVectorEnv(
+        CounterPort(), N_ENVS, max_episode_steps=LIMIT, device="cpu", actions=_draws()))
+    out = run([f"root_dir={tmp_path}/port", "run_name=bench", *common])
+    iters = out["iterations"] - out["learning_starts"] + 1
+    assert len(granted) == iters and out["gradient_steps"] == sum(granted) > iters
+
+    from sheeprl_tpu_torch.algos.sac.sac import SAC_FAMILY
+    from sheeprl_tpu_torch.algos.droq.droq import DROQ_FAMILY
+
+    assert SAC_FAMILY.benchmark_pin and not DROQ_FAMILY.benchmark_pin
+
+
+def _counter_envs(actions):
+    envs = JaxVectorEnv(CounterJax(), N_ENVS, seed=5, max_episode_steps=LIMIT)
+    envs.action_space.sample = lambda: actions.pop(0)
+    return envs
+
+
 def droq_args(tmp_path, name, extra=()):
     return ["exp=droq", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax", "fabric.accelerator=cpu",
             "metric.log_level=0", "algo.mlp_keys.encoder=[state]", "algo.hidden_size=16",

@@ -409,6 +409,7 @@ def test_port_scope_raises_name_their_roadmap_items(tmp_path, capsys):
         "buffer.memmap=True": "A2",
         "checkpoint.sharded=True": "A5",
         "checkpoint.resume_from=auto": "A6",
+        "faults=ckpt_truncate:1": "A6",
         "env.capture_video=True": "A2",
         "fabric.strategy=fsdp": "A5",
     }
