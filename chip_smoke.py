@@ -45,10 +45,11 @@ random weights drawn from a seed):
 - DreamerV3 and SAC through ``sheeprl_tpu_torch.cli.run`` (the off-policy
   env loops on the device envs): DV3-S with MLP keys on GridWorld (the
   fused GRU step, the device cache) and on CartPole (decoupled RSSM,
-  prioritized replay), 1,024 warm-up steps and 64 training iterations
-  each, then a resume, and the checkpoint's player on the card against the
-  plain CPU player; SAC on Pendulum, about 30 dispatches of 64 x 256 with
-  prioritized replay, then a resume.  Each run's kernel counts are set to
+  prioritized replay), 1,024 warm-up steps and ``DV3_CLI_TRAIN_ITERS``
+  training iterations each, then a resume, and the checkpoint's player on
+  the card against the plain CPU player; SAC on Pendulum,
+  ``SAC_CLI_DISPATCHES`` dispatches of 64 x 256 with prioritized replay,
+  then a resume.  Each run's kernel counts are set to
   0 just before it and read after it: every kernel its configuration
   reaches must have launched;
 - DroQ and Plan2Explore-DreamerV3 through the CLI: DroQ on Pendulum at its
@@ -57,7 +58,17 @@ random weights drawn from a seed):
   with 8 ensemble members on GridWorld (fused, cached) and on CartPole
   (decoupled, prioritized), the exploration player against the plain CPU
   player, a resume, and finetuning from the GridWorld run's checkpoint,
-  which must switch the player to the task actor.
+  which must switch the player to the task actor;
+- DreamerV2 and DreamerV1 through the CLI at their published widths (DV2
+  on GridWorld and on CartPole, prioritized; DV1 on Pendulum), each run's
+  draw check and profiled window, the first run resumed, its player
+  against the plain CPU player and one gradient step on the card against
+  the CPU, its categorical draws step-locked;
+- Plan2Explore-DreamerV2 (CartPole, prioritized) and -DreamerV1 (Pendulum)
+  exploration at their published widths with 10 ensemble members, the same
+  checks (the exploration player; the step's metrics to 1e-4), then
+  finetuning from the run's checkpoint; SAC-AE on Pendulum (MLP keys, the
+  device cache), its player and two gradient steps against the CPU.
 
 Before the paths it checks the sum-tree kernels (sample, write, update) on a
 1,000,000-leaf tree, the per-shard descent and scatter on a 250,000-leaf
@@ -82,12 +93,15 @@ that two checkouts can be timed in turns on one card, and the card's
 the sum-tree kernels' checks and rows (draws, writes, updates, scatters and
 the writes' lane-count cases) and the transition gather's row at the SAC
 shape of the checkout under DIR and of this one in turns, each by its own
-script (``chiprun_out/tree_bench.json``).
+script (``chiprun_out/tree_bench.json``).  ``--flip-probe [N]`` holds a
+Plan2Explore-DreamerV2 gradient step on the card against the CPU on N
+batches, with its categorical draws step-locked and without.
 None of these prints an ``ok`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -401,13 +415,13 @@ DV3_CLI_KERNELS = {
     "cartpole": ("gru_sequence", "gru_input_product", "gather_windows", "sum_tree_sample", "sum_tree_write"),
 }
 DV3_CLI_LEARNING_STARTS = 1024
-DV3_CLI_TRAIN_ITERS = 64
+DV3_CLI_TRAIN_ITERS = 32
 SAC_CLI_EXP = ["exp=sac", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax",
                "algo.mlp_keys.encoder=[state]", "algo.hidden_size=256", "algo.per_rank_batch_size=256",
                "buffer.device_cache=True", "buffer.prioritized=True", "buffer.per_kernel=pallas",
                "algo.dispatch_batch=64", "metric.log_level=0"]
 SAC_CLI_KERNELS = ("gather_transitions", "sum_tree_sample", "sum_tree_write", "sum_tree_update")
-SAC_CLI_DISPATCHES = 30
+SAC_CLI_DISPATCHES = 15
 # DroQ (exp=droq) on Pendulum at its published replay ratio 20, with SAC's
 # widths and batch and the env config's 4 envs: a training iteration is one
 # dispatch of 80 critic steps (#5 and #4 for their batches, #7 for their TD
@@ -454,13 +468,57 @@ DV2_CLI_KERNELS = {"gridworld": ("gather_windows",),
 DV1_CLI_EXP = ["exp=dreamer_v1", *DV3_CLI_EXP[1:], "env=jax_pendulum", "env.id=jax_pendulum", "buffer.size=100000"]
 DV1_CLI_RUNS = {"pendulum": ["buffer.device_cache=True", "buffer.per_kernel=pallas"]}
 DV1_CLI_KERNELS = {"pendulum": ("gather_windows",)}
+# Plan2Explore-DreamerV2 (exp=p2e_dv2_exploration) and -DreamerV1
+# (exp=p2e_dv1_exploration) at their published widths (P2E-DV2: dense,
+# recurrent and hidden 400, stochastic 32 x 32, ensembles.n 10, T 50, B 16,
+# horizon 15; P2E-DV1: stochastic 60, recurrent, hidden and dense 400,
+# ensembles.n 10, T 50, B 50), MLP keys only and one env, then finetuning
+# from each exploration run's checkpoint (exp=p2e_dv2_finetuning and
+# p2e_dv1_finetuning: published learning_starts 10000 and 5000, cut to the
+# exploration's).  Only depth is cut, as DV2_CLI_EXP's: learning_starts,
+# total_steps, P2E-DV2's pretrain steps and the ring.  P2E-DV2 explores
+# CartPole with prioritized starts (#3, #5, #6), P2E-DV1 Pendulum through
+# the device cache (#3).
+P2E_DV2_CLI_EXP = ["exp=p2e_dv2_exploration", *DV3_CLI_EXP[1:], "algo.per_rank_pretrain_steps=10",
+                   "buffer.size=100000"]
+P2E_DV2_CLI_RUNS = {"cartpole": ["env=jax_cartpole", "buffer.prioritized=True", "buffer.per_kernel=pallas"]}
+P2E_DV2_CLI_KERNELS = {"cartpole": ("gather_windows", "sum_tree_sample", "sum_tree_write")}
+P2E_DV1_CLI_EXP = ["exp=p2e_dv1_exploration", *DV3_CLI_EXP[1:], "env=jax_pendulum", "env.id=jax_pendulum",
+                   "buffer.size=100000"]
+P2E_DV1_CLI_RUNS = {"pendulum": ["buffer.device_cache=True", "buffer.per_kernel=pallas"]}
+P2E_DV1_CLI_KERNELS = {"pendulum": ("gather_windows",)}
 DREAMER_CLI_LEARNING_STARTS = 256
-DREAMER_CLI_TRAIN_ITERS = {"dreamer_v2": 60, "dreamer_v1": 40}
+DREAMER_CLI_TRAIN_ITERS = {"dreamer_v2": 60, "dreamer_v1": 40, "p2e_dv2_exploration": 10, "p2e_dv1_exploration": 10}
+# the finetuning exp of each exploration exp, and its training iterations after the same warm-up
+P2E_FINETUNING = {"p2e_dv2_exploration": "p2e_dv2_finetuning", "p2e_dv1_exploration": "p2e_dv1_finetuning"}
+P2E_FINETUNE_TRAIN_ITERS = 8
+# a P2E or SAC-AE gradient step on the card against the CPU, its categorical
+# draws step-locked (_DiscreteLock): each metric to 1e-4 of its own size (of
+# STEP_METRIC_FLOOR for one smaller, such as a loss that is 0 on both
+# sides), parameters to PARAM_ATOL; the step's batch drawn with STEP_BATCH_SEED
+P2E_STEP_RTOL = 1e-4
+STEP_METRIC_FLOOR = 1e-6
+STEP_BATCH_SEED = 0
+# SAC-AE (exp=sac_ae) on Pendulum at its published widths: hidden 1024,
+# encoder features_dim 64 (its MLP features: dense 64 x 2), decoder 64 x 2,
+# batch 128, replay ratio 1, the actor and the targets every 2 steps, the
+# decoder every step; MLP keys only (the port has no pixel device env), the
+# env config's 4 envs, through the device cache: one uniform draw (#4) a
+# dispatch, one dispatch an iteration of 4 gradient steps.  Only depth is
+# cut: learning_starts (published 1000) and total_steps.
+SAC_AE_CLI_EXP = ["exp=sac_ae", "env=jax_pendulum", "env.id=jax_pendulum", "algo.env_backend=jax",
+                  "algo.mlp_keys.encoder=[state]", "algo.cnn_keys.encoder=[]", "buffer.device_cache=True",
+                  "buffer.per_kernel=pallas", "metric.log_level=0"]
+SAC_AE_CLI_KERNELS = ("gather_transitions",)
+SAC_AE_CLI_LEARNING_STARTS = 512
+SAC_AE_CLI_ITERS = 15
 # Each CLI configuration runs once more, short, for a torch.profiler window
 # over CLI_PROFILE_ITERS training calls after CLI_PROFILE_START warm ones,
 # so that the profiler's cost stays out of the measured run's rates.
-CLI_PROFILE_START = 3
-CLI_PROFILE_ITERS = 4
+CLI_PROFILE_START = 2
+# (a window of 4 calls cost the P2E phases about 40 s each at published
+# widths, most of it the profiler's own, for the same per-call figures)
+CLI_PROFILE_ITERS = 2
 
 _T0 = time.perf_counter()
 
@@ -3202,7 +3260,8 @@ def cache_draw_vs_plain(cache, *, n_samples: int, batch: int, seq_len=None, beta
     ``sample_per``'s (#5, #3, and #6 for the start decay) on a prioritized
     cache.  Without it (SAC) the draw is ``sample_transitions_per`` (#5,
     #4), then the TD update of the drawn leaves (#7) and the write of the
-    next flush's ``flush_rows`` rows an env at the running max (#6).  The
+    next flush's ``flush_rows`` rows an env at the running max (#6), or
+    ``sample_transitions`` (#4) on a uniform cache (SAC-AE).  The
     drawn leaves, the batches, the tree and the running max must be
     byte-identical; the IS weights agree to W_RTOL (powf on the card)."""
     import numpy as np
@@ -3235,6 +3294,9 @@ def cache_draw_vs_plain(cache, *, n_samples: int, batch: int, seq_len=None, beta
                     batch_out = cache.sample_per(n_samples, batch, seq_len, gen, beta=beta)
                 finally:
                     del tree.sample
+            elif tree is None:
+                batch_out = cache.sample_transitions(n_samples, batch, gen, sample_next_obs=sample_next_obs,
+                                                     obs_keys=obs_keys)
             else:
                 batch_out, leaves = cache.sample_transitions_per(
                     n_samples, batch, gen, beta, sample_next_obs=sample_next_obs, obs_keys=obs_keys)
@@ -3317,7 +3379,8 @@ class _TrainWindow:
 
         torch.cuda.synchronize()
         if self.calls == self.start:
-            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            # the device's records only: _device_time reads nothing else
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.start()
             self.t0 = time.perf_counter()
         elif self.calls == self.start + self.iters and self.prof is not None:
@@ -3690,11 +3753,15 @@ def run_p2e_dv3_cli(device: str, *, overrides=(), learning_starts: int = DV3_CLI
 
 
 def _dreamer_family(algo: str):
-    """The loop module of a Dreamer family and its family."""
+    """The loop module of a Dreamer or Plan2Explore family and its family."""
     from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1
     from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2
+    from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_exploration
+    from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration
 
-    return {"dreamer_v2": (dreamer_v2, dreamer_v2.DV2_FAMILY), "dreamer_v1": (dreamer_v1, dreamer_v1.DV1_FAMILY)}[algo]
+    return {"dreamer_v2": (dreamer_v2, dreamer_v2.DV2_FAMILY), "dreamer_v1": (dreamer_v1, dreamer_v1.DV1_FAMILY),
+            "p2e_dv2_exploration": (p2e_dv2_exploration, p2e_dv2_exploration.P2E_DV2_EXPLORATION_FAMILY),
+            "p2e_dv1_exploration": (p2e_dv1_exploration, p2e_dv1_exploration.P2E_DV1_EXPLORATION_FAMILY)}[algo]
 
 
 def _dreamer_run(cfg, state, device: str):
@@ -3712,13 +3779,102 @@ def _dreamer_run(cfg, state, device: str):
     return run.train_state, actions_dim, continuous, env
 
 
-def dreamer_step_vs_cpu(cfg, ckpt_path: str, device: str) -> dict:
-    """One gradient step of a DreamerV2 or V1 checkpoint on ``device``
-    against the same step on the CPU: the same parameters and Adam states,
-    one batch drawn from the checkpoint's replay buffer and the same noise
-    drawn on the CPU.  Each metric within LOSS_RTOL (LOSS_ATOL), the
-    parameters after the step within PARAM_ATOL; the step's host time on
-    each side."""
+class _DiscreteLock:
+    """Step-locks the categorical draws of one gradient step run on the CPU,
+    then on the card.  Recording (no ``recorded``), it keeps every
+    ``torch.argmax`` of the step: its scores and its result (``calls``);
+    replaying ``recorded`` (the recording's ``calls``), each call returns the
+    recorded result of the same call, on ``device``, and keeps its own.
+    ``flips`` counts the draws whose own result differs, ``near_ties`` those
+    whose two best scores on the CPU lie closer than twice the largest
+    difference between the card's and the CPU's scores of that draw (the
+    draws that could flip), ``max_score_diff`` is that difference's largest.
+    A Gumbel argmax near a tie can pick another class on the card than on
+    the CPU, and one such pick changes a whole imagined trajectory; locked,
+    the two steps share their discrete choices and differ only by the
+    arithmetic around them."""
+
+    def __init__(self, recorded=None, device: str = "cpu"):
+        self.recorded = None if recorded is None else [(x.to(device), r.to(device)) for x, r in recorded]
+        self.calls, self.flips, self.near_ties, self.max_score_diff = [], 0, 0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        self.torch, self.inner = torch, torch.argmax
+
+        def argmax(*args, **kwargs):
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+            if dim not in (-1, args[0].dim() - 1):
+                raise AssertionError(f"a categorical draw over dimension {dim}: the lock reads the last one")
+            out = self.inner(*args, **kwargs)
+            i = len(self.calls)
+            self.calls.append((args[0].detach(), out))
+            if self.recorded is None:
+                return out
+            if i >= len(self.recorded) or self.recorded[i][1].shape != out.shape:
+                raise AssertionError(f"categorical draw {i} of the step has no counterpart on the CPU")
+            return self.recorded[i][1]
+
+        torch.argmax = argmax
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.argmax = self.inner
+        if exc[0] is None and self.recorded is not None:
+            if len(self.calls) != len(self.recorded):
+                raise AssertionError(f"{len(self.calls)} categorical draws on the card, {len(self.recorded)} on the CPU")
+            for (scores, own), (cpu_scores, want) in zip(self.calls, self.recorded):
+                self.flips += int((own != want).sum())
+                diff = (scores - cpu_scores).abs().amax(-1)
+                top2 = cpu_scores.topk(2, -1).values
+                self.near_ties += int((top2[..., 0] - top2[..., 1] < 2 * diff).sum())
+                self.max_score_diff = max(self.max_score_diff, float(diff.max()))
+
+
+def _metric_param_errors(cpu: dict, card: dict) -> tuple:
+    """Each metric's relative error and the parameters' largest absolute
+    error of a step on the card (``card``: {"metrics", "params"}) against
+    the same step on the CPU."""
+    rel = {k: abs(card["metrics"][k] - want) / max(abs(want), 1e-12) for k, want in cpu["metrics"].items()}
+    return rel, max(float((card["params"][k] - v).abs().max()) for k, v in cpu["params"].items())
+
+
+def _card_vs_cpu(tag: str, cpu: dict, card: dict, rtol=None) -> dict:
+    """A step on the card against the same step on the CPU (each {"metrics",
+    "params"}): each metric within ``rtol`` of its own size (of
+    STEP_METRIC_FLOOR where it is smaller) or, without ``rtol``, within
+    LOSS_RTOL (0.1 for the gradient norms, else LOSS_RTOL_DEFAULT) plus
+    LOSS_ATOL; the parameters within PARAM_ATOL.  Raises on the first miss;
+    -> the errors and the card's metrics."""
+    import numpy as np
+
+    rel, err = _metric_param_errors(cpu, card)
+    for k, want in cpu["metrics"].items():
+        have = card["metrics"][k]
+        if rtol is None:
+            tol = LOSS_RTOL.get(k, 0.1 if k.startswith("Grads/") else LOSS_RTOL_DEFAULT) * abs(want) + LOSS_ATOL
+        else:
+            tol = rtol * max(abs(want), STEP_METRIC_FLOOR)
+        if not np.isfinite(have) or abs(have - want) > tol:
+            raise AssertionError(f"{tag} on the card against the CPU: {k} {have} vs {want} (tolerance {tol})")
+    if not np.isfinite(err) or err > PARAM_ATOL:
+        raise AssertionError(f"{tag} on the card against the CPU: parameters differ by {err} > {PARAM_ATOL}")
+    return {"max_abs_param_err": err, "param_tol": PARAM_ATOL, "metric_rel_err": rel, "metric_rtol": rtol,
+            "max_metric_rel_err": max(rel.values()), "metrics": card["metrics"]}
+
+
+def dreamer_step_vs_cpu(cfg, ckpt_path: str, device: str, rtol=None, batch_seed: int = STEP_BATCH_SEED,
+                        unlocked: bool = False) -> dict:
+    """One gradient step of a DreamerV2, V1 or Plan2Explore exploration
+    checkpoint on ``device`` against the same step on the CPU: the same
+    parameters and Adam states, one batch drawn (``batch_seed``) from the
+    checkpoint's replay buffer, the same noise drawn on the CPU and the
+    CPU's categorical draws (:class:`_DiscreteLock`; ``flips``: the draws
+    the card would have taken otherwise), held by :func:`_card_vs_cpu`; the
+    step's host time on each side.  With ``unlocked``, the card's step once
+    more from the checkpoint without the lock, its errors reported, not
+    held (``unlocked``)."""
     import numpy as np
     import torch
 
@@ -3728,10 +3884,12 @@ def dreamer_step_vs_cpu(cfg, ckpt_path: str, device: str) -> dict:
     module, _ = _dreamer_family(cfg.algo.name)
     state = load_checkpoint(ckpt_path)
     T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
-    sample = restore_buffer(state["rb"]).sample(B, sequence_length=T, n_samples=1)
+    rb = restore_buffer(state["rb"])
+    rb.seed(batch_seed)
+    sample = rb.sample(B, sequence_length=T, n_samples=1)
     batch = {k: torch.as_tensor(np.asarray(v[0]), dtype=torch.float32) for k, v in sample.items()}
-    runs = {}
-    for dev in ("cpu", device):
+
+    def step(dev: str, lock) -> dict:
         ts, _, _, _ = _dreamer_run(cfg, state, dev)
         noise = module.draw_noise(cfg, T, B, ts.agent.actor, device="cpu", generator=torch.Generator().manual_seed(7))
         data = {k: v.to(dev) for k, v in batch.items()}
@@ -3739,27 +3897,30 @@ def dreamer_step_vs_cpu(cfg, ckpt_path: str, device: str) -> dict:
         if dev != "cpu":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, metrics = ts.train_fn(ts.opt_states, ts.moments, data, noise=noise)
-        metrics = {k: float(v) for k, v in metrics.items()}
+        with lock:
+            _, _, metrics = ts.train_fn(ts.opt_states, ts.moments, data, noise=noise)
+            metrics = {k: float(v) for k, v in metrics.items()}
         ms = (time.perf_counter() - t0) * 1e3
-        runs[dev] = {"metrics": metrics, "ms": ms, "params": {k: v.detach().cpu() for k, v in ts.agent.state_dict().items()}}
-    cpu, card = runs["cpu"], runs[device]
-    rel = {}
-    for k, want in cpu["metrics"].items():
-        have = card["metrics"][k]
-        tol = LOSS_RTOL.get(k, 0.1 if k.startswith("Grads/") else LOSS_RTOL_DEFAULT)
-        rel[k] = abs(have - want) / max(abs(want), 1e-12)
-        if not np.isfinite(have) or abs(have - want) > tol * abs(want) + LOSS_ATOL:
-            raise AssertionError(f"{cfg.algo.name} step on {device} against the CPU: {k} {have} vs {want}")
-    err = max(float((card["params"][k] - v).abs().max()) for k, v in cpu["params"].items())
-    if not np.isfinite(err) or err > PARAM_ATOL:
-        raise AssertionError(f"{cfg.algo.name} step on {device} against the CPU: parameters differ by {err} > {PARAM_ATOL}")
-    return {"max_abs_param_err": err, "param_tol": PARAM_ATOL, "metric_rel_err": rel, "metrics": card["metrics"],
-            "step_ms": card["ms"], "cpu_step_ms": cpu["ms"], "T": T, "B": B}
+        return {"metrics": metrics, "ms": ms, "params": {k: v.detach().cpu() for k, v in ts.agent.state_dict().items()}}
+
+    record = _DiscreteLock()
+    cpu = step("cpu", record)
+    lock = _DiscreteLock(record.calls, device)
+    card = step(device, lock)
+    res = _card_vs_cpu(f"{cfg.algo.name} step", cpu, card, rtol)
+    res.update(categorical_draws=len(record.calls), flips=lock.flips, near_ties=lock.near_ties,
+               max_score_diff=lock.max_score_diff, step_ms=card["ms"], cpu_step_ms=cpu["ms"], T=T, B=B,
+               batch_seed=batch_seed)
+    if unlocked:
+        rel, err = _metric_param_errors(cpu, step(device, contextlib.nullcontext()))
+        res["unlocked"] = {"max_metric_rel_err": max(rel.values()), "max_abs_param_err": err,
+                           "metric_rel_err": {k: v for k, v in rel.items() if v > 1e-5}}
+    return res
 
 
-def dreamer_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> dict:
-    """A DreamerV2 or V1 checkpoint's player on ``device`` against the same
+def dreamer_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16, actor_key: str = "actor") -> dict:
+    """A DreamerV2, V1 or Plan2Explore checkpoint's player (its world model
+    and the actor under ``actor_key``) on ``device`` against the same
     player on the CPU (plain versions): the same observations (a CPU rollout
     of 4 envs acting on the CPU's actions) and the same latent noise (Gumbel
     for V2's discrete latents, normals for V1's) for 16 steps; the recurrent
@@ -3768,6 +3929,7 @@ def dreamer_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -
     import numpy as np
     import torch
 
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import DreamerPlayer, WorldModel
     from sheeprl_tpu_torch.envs.device import DeviceVectorEnv
     from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
 
@@ -3775,9 +3937,11 @@ def dreamer_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -
     agents = {}
     for dev in (device, "cpu"):
         ts, actions_dim, continuous, env = _dreamer_run(cfg, state, dev)
-        agents[dev] = ts.agent.player()
+        wm = ts.agent.world_model
+        agents[dev] = DreamerPlayer(WorldModel(wm.encoder, wm.rssm), getattr(ts.agent, actor_key))
     wm_cfg = cfg.algo.world_model
-    latent = (int(wm_cfg.stochastic_size),) + ((int(wm_cfg.discrete_size),) if cfg.algo.name == "dreamer_v2" else ())
+    discrete = _dreamer_family(cfg.algo.name)[1].generation == 2
+    latent = (int(wm_cfg.stochastic_size),) + ((int(wm_cfg.discrete_size),) if discrete else ())
     n = 4
     vec = DeviceVectorEnv(env, n, device="cpu", seed=3)
     obs = vec.reset(seed=3)[0]
@@ -3816,39 +3980,78 @@ def dreamer_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -
             if not np.isfinite(err) or err > STATE_TOL:
                 raise AssertionError(f"step {t}: recurrent states differ by {err} > {STATE_TOL}")
             obs = vec.step(step_actions)[0]
-    return {"steps": steps, "envs": n, "max_abs_state_err": worst, "tol": STATE_TOL,
+    return {"steps": steps, "envs": n, "max_abs_state_err": worst, "tol": STATE_TOL, "actor": actor_key,
             "actions": f"max abs err {worst_act}" if continuous else "identical"}
 
 
+DREAMER_CLI = {"dreamer_v2": (DV2_CLI_EXP, DV2_CLI_RUNS, DV2_CLI_KERNELS),
+               "dreamer_v1": (DV1_CLI_EXP, DV1_CLI_RUNS, DV1_CLI_KERNELS),
+               "p2e_dv2_exploration": (P2E_DV2_CLI_EXP, P2E_DV2_CLI_RUNS, P2E_DV2_CLI_KERNELS),
+               "p2e_dv1_exploration": (P2E_DV1_CLI_EXP, P2E_DV1_CLI_RUNS, P2E_DV1_CLI_KERNELS)}
+
+
+def _p2e_finetuning_run(algo: str, args_of, root: str, ckpt: str, device: str, learning_starts: int, iters: int,
+                        kernels) -> dict:
+    """Plan2Explore finetuning (``P2E_FINETUNING[algo]``) from an exploration
+    checkpoint on the exploration run's configuration: the player acts with
+    the exploration actor, then the task actor from the first gradient step;
+    the loop rates, peak memory, launches and a draw from its cache against
+    the plain versions."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+
+    fine = P2E_FINETUNING[algo]
+    args = args_of(f"exp={fine}", f"{fine}", [f"checkpoint.exploration_ckpt_path={ckpt}"])
+    n = int(compose(overrides=args).env.num_envs)
+    window = _TrainWindow(dv3, "train_steps", 0, 0, False, check=_dv3_draw_check)
+    res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={learning_starts + iters * n}"], device, window)
+    if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or "") or not res["actor_switched"]:
+        raise AssertionError(f"{fine}: no test reward, no final checkpoint or no switch to the task actor: {res}")
+    _require_launches(fine, launches, kernels, device)
+    _require_checked(fine, window, kernels)
+    return {"wall_s": wall, **_loop_rates(res, n, window), "peak_memory_bytes": peak,
+            "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+            "actor_switched": res["actor_switched"], "test_reward": res["test_reward"]}
+
+
 def run_dreamer_cli(algo: str, device: str, *, overrides=(), learning_starts: int = DREAMER_CLI_LEARNING_STARTS,
-                    train_iters=None, profile: bool = True) -> dict:
-    """DreamerV2 (``algo`` dreamer_v2: DV2_CLI_RUNS) or DreamerV1
-    (dreamer_v1: DV1_CLI_RUNS) through ``sheeprl_tpu_torch.cli.run`` on
-    ``device``, as ``run_dv3_cli`` runs DreamerV3: each run's loop rates,
-    peak memory, its kernels' launches and a draw from its own cache against
-    the plain versions, a profiled window; the first run resumed for one
-    iteration, its checkpoint's player held against the plain CPU player and
-    one gradient step on the card against the CPU."""
+                    train_iters=None, finetune_iters: int = P2E_FINETUNE_TRAIN_ITERS, profile: bool = True) -> dict:
+    """DreamerV2, DreamerV1 or a Plan2Explore exploration (``algo``: a key of
+    DREAMER_CLI) through ``sheeprl_tpu_torch.cli.run`` on ``device``, as
+    ``run_dv3_cli`` runs DreamerV3: each run's loop rates, peak memory, its
+    kernels' launches and a draw from its own cache against the plain
+    versions and a profiled window; the first run's checkpoint's player (the
+    exploration actor's for Plan2Explore) held against the plain CPU player
+    and one gradient step on the card against the CPU (Plan2Explore's
+    metrics to P2E_STEP_RTOL); DreamerV2's and V1's first run resumed for one
+    iteration, Plan2Explore's finetuned from its checkpoint instead.  Each
+    row has the seconds of its parts (``seconds``)."""
     import tempfile
 
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
     from sheeprl_tpu_torch.config import compose
 
-    exp, runs, kernels = {"dreamer_v2": (DV2_CLI_EXP, DV2_CLI_RUNS, DV2_CLI_KERNELS),
-                          "dreamer_v1": (DV1_CLI_EXP, DV1_CLI_RUNS, DV1_CLI_KERNELS)}[algo]
+    exp, runs, kernels = DREAMER_CLI[algo]
+    p2e = algo in P2E_FINETUNING
     train_iters = DREAMER_CLI_TRAIN_ITERS[algo] if train_iters is None else train_iters
     accel = "cpu" if device == "cpu" else "cuda"
     out = {}
     with tempfile.TemporaryDirectory(prefix=f"{algo}_cli_") as root:
         for i, (name, extra) in enumerate(runs.items()):
             tag = f"{algo} {name}"
-            args = [*exp, *extra, f"fabric.accelerator={accel}", f"root_dir={root}", f"run_name={algo}_{name}",
-                    f"algo.learning_starts={learning_starts}", *overrides]
+
+            def args_of(exp_arg: str, run_name: str, more=()):
+                return [exp_arg, *exp[1:], *extra, f"fabric.accelerator={accel}", f"root_dir={root}",
+                        f"run_name={run_name}", f"algo.learning_starts={learning_starts}", *more, *overrides]
+
+            args = args_of(exp[0], f"{algo}_{name}")
             cfg = compose(overrides=args)
             n = int(cfg.env.num_envs)
             window = _TrainWindow(dv3, "train_steps", 0, 0, False, check=_dv3_draw_check)
+            seconds, t0 = {}, time.perf_counter()
             res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={learning_starts + train_iters * n}"], device,
                                                  window)
+            seconds["run_s"] = time.perf_counter() - t0
             if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
                 raise AssertionError(f"{tag}: no test reward or no final checkpoint: {res}")
             _require_launches(tag, launches, kernels[name], device)
@@ -3856,15 +4059,32 @@ def run_dreamer_cli(algo: str, device: str, *, overrides=(), learning_starts: in
             row = {"env": cfg.env.id, "num_envs": n, "wall_s": wall, **_loop_rates(res, n, window),
                    "peak_memory_bytes": peak, "launches": {k: v for k, v in launches.items() if v},
                    "draw_vs_plain": window.checked, "test_reward": res["test_reward"]}
+            if p2e:
+                row["ensembles"] = int(cfg.algo.ensembles.n)
+            def timed(part: str, fn):
+                t = time.perf_counter()
+                value = fn()
+                seconds[part] = time.perf_counter() - t
+                return value
+
             if profile and device != "cpu":
                 # a training call every 1 / replay_ratio iterations
                 every = max(1, round(1 / float(cfg.algo.replay_ratio)))
                 steps = learning_starts + (CLI_PROFILE_START + CLI_PROFILE_ITERS + 2) * every * n
-                row["profile"] = _profiled_run(dv3, "train_steps", args, steps, f"{algo}_{name}_profiled")
+                row["profile"] = timed("profile_s", lambda: _profiled_run(dv3, "train_steps", args, steps,
+                                                                          f"{algo}_{name}_profiled"))
             if i == 0:
-                row["resumed"] = _resume_one(args, res, n, root, f"{algo}_{name}_resumed")
-                row["player_vs_plain"] = dreamer_player_vs_plain(cfg, res["checkpoint"], device)
-                row["step_vs_cpu"] = dreamer_step_vs_cpu(cfg, res["checkpoint"], device)
+                ckpt = res["checkpoint"]
+                if not p2e:
+                    row["resumed"] = timed("resume_s", lambda: _resume_one(args, res, n, root, f"{algo}_{name}_resumed"))
+                row["player_vs_plain"] = timed("player_s", lambda: dreamer_player_vs_plain(
+                    cfg, ckpt, device, actor_key="actor_exploration" if p2e else "actor"))
+                row["step_vs_cpu"] = timed("step_vs_cpu_s", lambda: dreamer_step_vs_cpu(
+                    cfg, ckpt, device, rtol=P2E_STEP_RTOL if p2e else None))
+                if p2e:
+                    row["finetuning"] = timed("finetuning_s", lambda: _p2e_finetuning_run(
+                        algo, args_of, root, ckpt, device, learning_starts, finetune_iters, kernels[name]))
+            row["seconds"] = seconds
             out[name] = row
     return out
 
@@ -3875,6 +4095,182 @@ def run_dv2_cli(device: str, **kwargs) -> dict:
 
 def run_dv1_cli(device: str, **kwargs) -> dict:
     return run_dreamer_cli("dreamer_v1", device, **kwargs)
+
+
+def run_p2e_dv2_cli(device: str, **kwargs) -> dict:
+    return run_dreamer_cli("p2e_dv2_exploration", device, **kwargs)
+
+
+def run_p2e_dv1_cli(device: str, **kwargs) -> dict:
+    return run_dreamer_cli("p2e_dv1_exploration", device, **kwargs)
+
+
+def flip_probe(batches: int, device: str = "cuda", overrides=()) -> list:
+    """``--flip-probe [N]``: a short Plan2Explore-DreamerV2 exploration run
+    (``p2e_dv2_cli``'s configuration) through the CLI, then its gradient step
+    on the card against the CPU on N batches (seeds 0 to N - 1), each held
+    step-locked to P2E_STEP_RTOL and reported unlocked too: one line a batch
+    with the flipped draws and the errors either way (-> the lines)."""
+    import tempfile
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+
+    with tempfile.TemporaryDirectory(prefix="flip_probe_") as root:
+        accel = "cpu" if device == "cpu" else "cuda"
+        args = [*P2E_DV2_CLI_EXP, *P2E_DV2_CLI_RUNS["cartpole"], f"fabric.accelerator={accel}", f"root_dir={root}",
+                "run_name=flip_probe", f"algo.learning_starts={DREAMER_CLI_LEARNING_STARTS}", "algo.run_test=False",
+                f"algo.total_steps={DREAMER_CLI_LEARNING_STARTS + 10}", *overrides]
+        ckpt = run(args)["checkpoint"]
+        cfg = compose(overrides=args)
+        out = []
+        for seed in range(batches):
+            res = dreamer_step_vs_cpu(cfg, ckpt, device, rtol=P2E_STEP_RTOL, batch_seed=seed, unlocked=True)
+            res.pop("metrics")
+            res["metric_rel_err"] = {k: v for k, v in res["metric_rel_err"].items() if v > 1e-6}
+            phase("flip_probe", **res)
+            out.append(res)
+    return out
+
+
+def _sac_ae_draw_check(state, rb, cache, cfg, ema_flags, *args, **kwargs) -> dict:
+    """``cache_draw_vs_plain`` at the SAC-AE dispatch's gradient steps, batch
+    and observation keys (a uniform draw, #4)."""
+    keys = tuple(cfg.algo.cnn_keys.encoder) + tuple(cfg.algo.mlp_keys.encoder)
+    return cache_draw_vs_plain(cache, n_samples=len(ema_flags), batch=int(cfg.algo.per_rank_batch_size),
+                               sample_next_obs=bool(cfg.buffer.sample_next_obs), obs_keys=keys)
+
+
+def _sac_ae_agent(cfg, state, device: str):
+    """A SAC-AE checkpoint's agent and train state on ``device``."""
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.parallel.mesh import MeshRuntime
+    from sheeprl_tpu_torch.utils.convert import adam_state_from_tree, load_flax_params
+    from sheeprl_tpu_torch.utils.env import make_device_env_from_cfg
+
+    env = make_device_env_from_cfg(cfg)
+    runtime = MeshRuntime(device=device, seed=0).launch()
+    agent, target_entropy = sac_ae.build_agent(runtime, cfg, env.observation_space, env.action_space)
+    load_flax_params(agent, state["agent"])
+    ts = sac_ae.make_train_state(runtime, agent, cfg, target_entropy)
+    ts.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in sac_ae.opt_groups(agent).items()}
+    return agent, ts, env
+
+
+def sac_ae_step_vs_cpu(cfg, ckpt_path: str, device: str, batch_seed: int = STEP_BATCH_SEED) -> dict:
+    """Two SAC-AE gradient steps (one dispatch from the counter 0, where every
+    branch fires, then one where the actor and the targets skip) of a
+    checkpoint on ``device`` against the same on the CPU: the same
+    parameters, Adam states, batch (drawn with ``batch_seed`` from the
+    checkpoint's buffer) and noise (drawn on the CPU), held by
+    :func:`_card_vs_cpu` to P2E_STEP_RTOL."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.resilience.manager import restore_buffer
+    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+
+    state = load_checkpoint(ckpt_path)
+    b = int(cfg.algo.per_rank_batch_size)
+    rb = restore_buffer(state["rb"])
+    rb.seed(batch_seed)
+    sample = rb.sample(batch_size=2 * b, sample_next_obs=bool(cfg.buffer.sample_next_obs))
+    batch = {k: torch.as_tensor(np.asarray(v, dtype=np.float32).reshape(2, b, *v.shape[2:])) for k, v in sample.items()}
+    runs = {}
+    for dev in ("cpu", device):
+        agent, ts, _ = _sac_ae_agent(cfg, state, dev)
+        noise = sac_ae.draw_noise(cfg, agent, batch, torch.Generator().manual_seed(7))
+        data = {k: v.to(dev) for k, v in batch.items()}
+        noise = {k: {kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev)
+                 for k, v in noise.items()}
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = ts.train_fn(ts.opt_states, data, 0, noise=noise)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        runs[dev] = {"metrics": metrics, "ms": (time.perf_counter() - t0) * 1e3,
+                     "params": {k: v.detach().cpu() for k, v in agent.state_dict().items()}}
+    res = _card_vs_cpu("sac_ae steps", runs["cpu"], runs[device], P2E_STEP_RTOL)
+    res.update(steps=2, dispatch_ms=runs[device]["ms"], cpu_dispatch_ms=runs["cpu"]["ms"], B=b, batch_seed=batch_seed)
+    return res
+
+
+def sac_ae_player_vs_plain(cfg, ckpt_path: str, device: str, steps: int = 16) -> dict:
+    """A SAC-AE checkpoint's player on ``device`` against the same player on
+    the CPU: 4 envs' observations from a CPU rollout acting on the CPU's
+    actions; the greedy actions within STATE_TOL at every step."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.envs.device import DeviceVectorEnv
+    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+
+    state = load_checkpoint(ckpt_path)
+    players = {}
+    for dev in (device, "cpu"):
+        agent, _, env = _sac_ae_agent(cfg, state, dev)
+        players[dev] = sac_ae.make_player(agent, cfg, 4)
+    vec = DeviceVectorEnv(env, 4, device="cpu", seed=3)
+    obs = vec.reset(seed=3)[0]
+    worst = 0.0
+    for t in range(steps):
+        acts = {}
+        for dev, player in players.items():
+            acts[dev] = player.get_actions(obs, greedy=True).cpu()
+        err = float((acts[device] - acts["cpu"]).abs().max())
+        worst = max(worst, err)
+        if not np.isfinite(err) or err > STATE_TOL:
+            raise AssertionError(f"sac_ae player step {t}: greedy actions differ by {err} > {STATE_TOL}")
+        obs = vec.step(acts["cpu"].numpy())[0]
+    return {"steps": steps, "envs": 4, "max_abs_action_err": worst, "tol": STATE_TOL}
+
+
+def run_sac_ae_cli(device: str, *, overrides=(), learning_starts: int = SAC_AE_CLI_LEARNING_STARTS,
+                   iters: int = SAC_AE_CLI_ITERS, profile: bool = True) -> dict:
+    """SAC-AE on Pendulum through ``sheeprl_tpu_torch.cli.run`` on
+    ``device``: ``iters`` training iterations after the warm-up (one
+    dispatch each), the loop rates, ms a dispatch, a profiled window of
+    dispatches, peak memory and the launches of #4, a draw from the run's
+    own cache held against the plain version; then the checkpoint's player
+    against the plain CPU player and a dispatch on the card against the CPU,
+    with the seconds of each part (``seconds``)."""
+    import tempfile
+
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae as sac_ae_mod
+    from sheeprl_tpu_torch.config import compose
+
+    accel = "cpu" if device == "cpu" else "cuda"
+    with tempfile.TemporaryDirectory(prefix="sac_ae_cli_") as root:
+        args = [*SAC_AE_CLI_EXP, f"fabric.accelerator={accel}", f"root_dir={root}", "run_name=sac_ae_pendulum",
+                f"algo.learning_starts={learning_starts}", *overrides]
+        cfg = compose(overrides=args)
+        n = int(cfg.env.num_envs)
+        warm = learning_starts // n
+        window = _TrainWindow(sac_ae_mod, "train_dispatch", 0, 0, False, check=_sac_ae_draw_check)
+        res, wall, launches, peak = _cli_run(args + [f"algo.total_steps={(warm + iters) * n}"], device, window)
+        if res["test_reward"] is None or not os.path.exists(res["checkpoint"] or ""):
+            raise AssertionError(f"sac_ae: no test reward or no final checkpoint: {res}")
+        _require_launches("sac_ae", launches, SAC_AE_CLI_KERNELS, device)
+        _require_checked("sac_ae", window, SAC_AE_CLI_KERNELS)
+        rates = _loop_rates(res, n, window)
+        row = {"env": cfg.env.id, "num_envs": n, "replay_ratio": float(cfg.algo.replay_ratio),
+               "batch": int(cfg.algo.per_rank_batch_size), "hidden": int(cfg.algo.hidden_size), "wall_s": wall,
+               **rates, "dispatches": res["dispatches"],
+               "ms_per_dispatch": 1e3 * res["train_s"] / max(1, res["dispatches"]), "peak_memory_bytes": peak,
+               "launches": {k: v for k, v in launches.items() if v}, "draw_vs_plain": window.checked,
+               "test_reward": res["test_reward"]}
+        t = time.perf_counter()
+        if profile and device != "cpu":
+            steps = (warm + CLI_PROFILE_START + CLI_PROFILE_ITERS + 2) * n
+            row["profile"] = _profiled_run(sac_ae_mod, "train_dispatch", args, steps, "sac_ae_pendulum_profiled")
+        t, row["seconds"] = time.perf_counter(), {"profile_s": time.perf_counter() - t}
+        row["player_vs_plain"] = sac_ae_player_vs_plain(cfg, res["checkpoint"], device)
+        t, row["seconds"]["player_s"] = time.perf_counter(), time.perf_counter() - t
+        row["step_vs_cpu"] = sac_ae_step_vs_cpu(cfg, res["checkpoint"], device)
+        row["seconds"]["step_vs_cpu_s"] = time.perf_counter() - t
+    return row
 
 
 def mma_sync_peak(torch) -> dict:
@@ -4135,6 +4531,11 @@ def main() -> int:
         profile_training(steps)
         print(smi, flush=True)
         return 0
+    if "--flip-probe" in sys.argv:
+        i = sys.argv.index("--flip-probe")
+        flip_probe(int(sys.argv[i + 1]) if len(sys.argv) > i + 1 else 8)
+        print(smi, flush=True)
+        return 0
 
     # 3. kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4260,14 +4661,32 @@ def main() -> int:
         phase("dv1_cli", run=label, card=smi, **row)
     torch.cuda.empty_cache()
 
+    # 10d. Plan2Explore-DreamerV2 and -DreamerV1 (exploration, then
+    # finetuning) and SAC-AE through the CLI: the window gather and P2E-DV2's
+    # prioritized starts (#3, #5, #6), SAC-AE's transition draws (#4)
+    p2e_dv2_cli = run_p2e_dv2_cli("cuda")
+    for label, row in p2e_dv2_cli.items():
+        phase("p2e_dv2_cli", run=label, card=smi, **row)
+    torch.cuda.empty_cache()
+    p2e_dv1_cli = run_p2e_dv1_cli("cuda")
+    for label, row in p2e_dv1_cli.items():
+        phase("p2e_dv1_cli", run=label, card=smi, **row)
+    torch.cuda.empty_cache()
+    sac_ae_cli = run_sac_ae_cli("cuda")
+    phase("sac_ae_cli", card=smi, **sac_ae_cli)
+    torch.cuda.empty_cache()
+
+    def runs_launches(rows: dict, name: str) -> int:
+        """A phase's launches of kernel ``name``: its runs' and their finetuning runs'."""
+        return sum(row["launches"].get(name, 0) + row.get("finetuning", {}).get("launches", {}).get(name, 0)
+                   for row in rows.values())
+
     def cli_launches(name: str) -> dict:
-        dv3 = sum(row["launches"].get(name, 0) for row in dv3_cli.values())
-        p2e = sum(row["launches"].get(name, 0) for row in p2e_cli.values()) \
-            + p2e_cli["gridworld"]["finetuning"]["launches"].get(name, 0)
-        paths = (("dv3_cli", dv3), ("sac_cli", sac_cli["launches"].get(name, 0)),
-                 ("droq_cli", droq_cli["launches"].get(name, 0)), ("p2e_dv3_cli", p2e),
-                 ("dv2_cli", sum(row["launches"].get(name, 0) for row in dv2_cli.values())),
-                 ("dv1_cli", sum(row["launches"].get(name, 0) for row in dv1_cli.values())))
+        paths = (("dv3_cli", runs_launches(dv3_cli, name)), ("sac_cli", sac_cli["launches"].get(name, 0)),
+                 ("droq_cli", droq_cli["launches"].get(name, 0)), ("p2e_dv3_cli", runs_launches(p2e_cli, name)),
+                 ("dv2_cli", runs_launches(dv2_cli, name)), ("dv1_cli", runs_launches(dv1_cli, name)),
+                 ("p2e_dv2_cli", runs_launches(p2e_dv2_cli, name)), ("p2e_dv1_cli", runs_launches(p2e_dv1_cli, name)),
+                 ("sac_ae_cli", sac_ae_cli["launches"].get(name, 0)))
         return {k: v for k, v in paths if v}
 
     # 11. purity

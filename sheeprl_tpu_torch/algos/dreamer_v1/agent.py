@@ -23,7 +23,8 @@ from sheeprl_tpu_torch.algos.dreamer_v2.agent import PlayerDV2, V2MLP, build_act
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import DreamerPlayer, WorldModel, _linear
 from sheeprl_tpu_torch.models.models import flax_init_, lecun_normal_, resolve_activation
 
-__all__ = ["DV1Agent", "GRUCell", "PlayerDV1", "RSSM", "RecurrentModel", "build_agent", "compute_stochastic_state"]
+__all__ = ["DV1Agent", "GRUCell", "PlayerDV1", "RSSM", "RecurrentModel", "build_agent", "build_critic",
+           "compute_stochastic_state"]
 
 
 class GRUCell(nn.Module):
@@ -202,6 +203,13 @@ class PlayerDV1(PlayerDV2):
         return 0.0 if greedy else self.get_expl_amount(step)
 
 
+def build_critic(runtime, cfg, latent_state_size: int) -> V2MLP:
+    """DreamerV1's critic (``cfg.algo.critic``, no LayerNorm)."""
+    node = cfg.algo.critic
+    return V2MLP(latent_state_size, int(node.dense_units), int(node.mlp_layers), 1, node.get("dense_act", "elu"), False,
+                 runtime.compute_dtype, runtime.device)
+
+
 def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space) -> DV1Agent:
     """The whole DreamerV1 agent (``agent.py:build_agent``): the world model
     (encoder, RSSM, observation and reward models, and the continue model
@@ -224,6 +232,6 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
 
     reward_model = head(wm_cfg.reward_model, dense_act)
     continue_model = head(wm_cfg.discount_model, dense_act) if bool(wm_cfg.use_continues) else None
-    critic = head(cfg.algo.critic, cfg.algo.critic.get("dense_act", "elu"))
+    critic = build_critic(runtime, cfg, latent)
     actor = build_actor(runtime, actions_dim, is_continuous, cfg, latent)
     return DV1Agent(WorldModel(encoder, rssm, observation_model, reward_model, continue_model), actor, critic)

@@ -67,6 +67,7 @@ __all__ = [
     "V2MLP",
     "add_exploration_noise",
     "build_agent",
+    "build_critic",
     "cnn_encoder_output_dim",
 ]
 
@@ -506,6 +507,17 @@ def build_actor(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, l
     )
 
 
+def build_head(runtime, node, latent_state_size: int, dense_act: str) -> V2MLP:
+    """A one-output V2MLP of ``node`` (its ``dense_act`` if it names one)."""
+    return V2MLP(latent_state_size, int(node.dense_units), int(node.mlp_layers), 1, node.get("dense_act", dense_act),
+                 bool(node.layer_norm), runtime.compute_dtype, runtime.device)
+
+
+def build_critic(runtime, cfg, latent_state_size: int) -> V2MLP:
+    """DreamerV2's critic (``cfg.algo.critic``)."""
+    return build_head(runtime, cfg.algo.critic, latent_state_size, cfg.algo.world_model.encoder.get("dense_act", "elu"))
+
+
 def build_encoder_decoder(runtime, cfg, obs_space, latent_state_size: int, *, cnn_act: str, dense_act: str,
                           layer_norms: Dict[str, bool], family: str = "DreamerV2"):
     """The encoder, the observation model and the embedding's size (the
@@ -575,12 +587,11 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     )
 
     def head(node) -> V2MLP:
-        return V2MLP(latent, int(node.dense_units), int(node.mlp_layers), 1, node.get("dense_act", dense_act),
-                     bool(node.layer_norm), dtype, device)
+        return build_head(runtime, node, latent, dense_act)
 
     reward_model = head(wm_cfg.reward_model)
     continue_model = head(wm_cfg.discount_model) if bool(wm_cfg.use_continues) else None
-    critic = head(cfg.algo.critic)
+    critic = build_critic(runtime, cfg, latent)
     actor = build_actor(runtime, actions_dim, is_continuous, cfg, latent)
     world_model = WorldModel(encoder, rssm, observation_model, reward_model, continue_model)
     return DreamerAgent(world_model, actor, critic, copy.deepcopy(critic))

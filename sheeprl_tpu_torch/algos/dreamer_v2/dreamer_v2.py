@@ -55,8 +55,9 @@ from sheeprl_tpu_torch.utils.distribution import Bernoulli, Independent, Normal,
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import trainable_params as _trainable
 
-__all__ = ["DV2_FAMILY", "StepConfig", "draw_noise", "main", "make_optimizers", "make_train_fn", "make_train_state",
-           "normal_heads"]
+__all__ = ["DV2_FAMILY", "StepConfig", "behaviour_update", "draw_noise", "imagination_starts", "imagine", "main",
+           "make_optimizers", "make_player", "make_train_fn", "make_train_state", "normal_heads", "step_config",
+           "world_model_loss"]
 
 @dataclass(frozen=True)
 class StepConfig:
@@ -130,22 +131,27 @@ def batch_observations(sc, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Ten
     return obs
 
 
-def normal_heads(sc, wm, latent_states: torch.Tensor, terminated: torch.Tensor):
+def normal_heads(sc, wm, latent_states: torch.Tensor, terminated: torch.Tensor, detach_heads: bool = False):
     """The unit-variance Normal observation and reward heads, and the
     Bernoulli continue head with its targets ``(1 - terminated) * gamma``
-    when ``use_continues`` (else None, None)."""
+    when ``use_continues`` (else None, None).  ``detach_heads``: the reward
+    and continue heads read the latents detached (Plan2Explore's
+    exploration phase)."""
     reconstructed = wm.observation_model(latent_states)
     po = {k: Independent(Normal(v, torch.ones_like(v)), v.dim() - 2) for k, v in reconstructed.items()
           if k in sc.decoded_keys}
-    reward = wm.reward_model(latent_states)
+    head_in = latent_states.detach() if detach_heads else latent_states
+    reward = wm.reward_model(head_in)
     pr = Independent(Normal(reward, torch.ones_like(reward)), 1)
     if sc.use_continues:
-        return po, pr, Independent(Bernoulli(logits=wm.continue_model(latent_states)), 1), (1 - terminated) * sc.gamma
+        return po, pr, Independent(Bernoulli(logits=wm.continue_model(head_in)), 1), (1 - terminated) * sc.gamma
     return po, pr, None, None
 
 
-def world_model_loss(sc: StepConfig, wm, data: Dict[str, torch.Tensor], dyn_noise: torch.Tensor):
-    """The world model's loss over a (T, B) batch: -> ``(loss, aux)``."""
+def world_model_loss(sc: StepConfig, wm, data: Dict[str, torch.Tensor], dyn_noise: torch.Tensor,
+                     detach_heads: bool = False):
+    """The world model's loss over a (T, B) batch: -> ``(loss, aux)``
+    (``detach_heads``: :func:`normal_heads`)."""
     rssm = wm.rssm
     T, B = data["rewards"].shape[:2]
     device = data["rewards"].device
@@ -168,7 +174,7 @@ def world_model_loss(sc: StepConfig, wm, data: Dict[str, torch.Tensor], dyn_nois
     posteriors = torch.stack(posts)
     priors_logits, _ = rssm._transition(recurrent_states, sample_state=False)
     latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], -1)
-    po, pr, pc, continue_targets = normal_heads(sc, wm, latent_states, data["terminated"].float())
+    po, pr, pc, continue_targets = normal_heads(sc, wm, latent_states, data["terminated"].float(), detach_heads)
     pl = priors_logits.reshape(T, B, sc.stochastic_size, sc.discrete_size)
     psl = torch.stack(post_logits).reshape(T, B, sc.stochastic_size, sc.discrete_size)
     rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
@@ -201,16 +207,77 @@ def imagine(sc: StepConfig, rssm, actor, imagined_prior: torch.Tensor, recurrent
     return torch.stack(latents), torch.stack([torch.zeros_like(imagined_actions[0])] + imagined_actions)
 
 
+def imagination_starts(sc: StepConfig, aux: Dict[str, torch.Tensor], terminated: torch.Tensor):
+    """The detached (T, B) posteriors and recurrent states flattened B-major
+    (row r = b * T + t) as imagination's starts, and the true continues
+    (T * B, 1) scaled by gamma."""
+    T, B = terminated.shape[:2]
+    prior0 = aux["posteriors"].detach().transpose(0, 1).reshape(T * B, sc.stoch_state_size)
+    rec0 = aux["recurrent_states"].detach().transpose(0, 1).reshape(T * B, sc.recurrent_state_size)
+    true_continue = (1 - terminated.float()).transpose(0, 1).reshape(T * B, 1) * sc.gamma
+    return prior0, rec0, true_continue
+
+
+def behaviour_update(sc: StepConfig, wm, actor, critic, target_critic, txs, opt_states, params, groups, starts,
+                     img_noise: torch.Tensor, act_noise: torch.Tensor, objective_mix: float, reward_fn=None):
+    """One actor and one critic step in imagination from ``starts``
+    (:func:`imagination_starts`) through the updated world model: the
+    actor's ``objective_mix`` of reinforce (the target critic's baseline)
+    and the lambda returns through the dynamics, with the entropy bonus;
+    the critic's unit-variance Normal regression on the lambda returns,
+    weighted by the discount.  ``groups`` names the actor's and the critic's
+    entries of ``txs``, ``opt_states`` and ``params``; ``reward_fn(traj,
+    actions)`` gives the imagined rewards (default: the reward model's).
+    -> ``(policy loss, value loss, actor grad norm, critic grad norm, aux)``,
+    ``aux`` the rewards, the target values and the lambda returns."""
+    actor_group, critic_group = groups
+    prior0, rec0, true_continue = starts
+    # the rollout carries a gradient only into the dynamics term
+    with torch.set_grad_enabled(objective_mix != 1.0):
+        traj, imagined_actions = imagine(sc, wm.rssm, actor, prior0, rec0, img_noise, act_noise)
+        target_values = target_critic(traj)
+        rewards = wm.reward_model(traj) if reward_fn is None else reward_fn(traj, imagined_actions)
+        if sc.use_continues:
+            continues = torch.sigmoid(wm.continue_model(traj))
+            continues = torch.cat([true_continue[None], continues[1:]], 0)
+        else:
+            continues = torch.ones_like(rewards) * sc.gamma
+        lambda_values = compute_lambda_values(rewards[:-1], target_values[:-1], continues[:-1], target_values[-1:],
+                                              sc.lmbda)
+    discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], 0), 0).detach()
+
+    # ------------------------------------------------ actor
+    _, policies = actor(traj[:-2].detach(), True)
+    advantage = (lambda_values[1:] - target_values[:-2]).detach()
+    sub_actions = [imagined_actions] if sc.is_continuous else torch.tensor_split(imagined_actions, list(sc.splits), -1)
+    reinforce = torch.stack(
+        [p.log_prob(a[1:-1].detach())[..., None] for p, a in zip(policies, sub_actions)], -1
+    ).sum(-1) * advantage
+    objective = objective_mix * reinforce + (1 - objective_mix) * lambda_values[1:]
+    try:
+        entropy = sc.ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
+    except (AttributeError, NotImplementedError):  # a distribution without entropy
+        entropy = torch.zeros_like(objective[..., 0])
+    policy_loss = -torch.mean(discount[:-2] * (objective + entropy[..., None]))
+    actor_norm = step_(txs[actor_group], params[actor_group], policy_loss, opt_states[actor_group])
+
+    # ------------------------------------------------ critic
+    values = critic(traj.detach()[:-1])
+    qv = Independent(Normal(values, torch.ones_like(values)), 1)
+    value_loss = -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values.detach()))
+    critic_norm = step_(txs[critic_group], params[critic_group], value_loss, opt_states[critic_group])
+    aux = {"rewards": rewards.detach(), "target_values": target_values.detach(), "lambda_values": lambda_values.detach()}
+    return policy_loss.detach(), value_loss.detach(), actor_norm, critic_norm, aux
+
+
 def make_train_fn(runtime, agent, txs, cfg, is_continuous: bool, actions_dim):
     """The gradient step: ``train(opt_states, moments, data, noise=None,
     generator=None) -> (opt_states, moments, metrics)``, ``data`` a dict of
     (T, B, *) tensors on the agent's device, ``moments`` passed through
     (DreamerV2 keeps none), ``metrics`` the JAX step's thirteen 0-d tensors."""
-    wm, actor, critic = agent.world_model, agent.actor, agent.critic
+    wm, actor = agent.world_model, agent.actor
     sc = step_config(cfg, is_continuous, actions_dim)
-    params = {"world_model": _trainable(wm), "actor": _trainable(actor), "critic": _trainable(critic)}
-    # the rollout carries a gradient only into the dynamics term
-    rollout_grad = sc.objective_mix != 1.0
+    params = {"world_model": _trainable(wm), "actor": _trainable(actor), "critic": _trainable(agent.critic)}
 
     def train(opt_states, moments, data, noise=None, generator=None):
         T, B = data["rewards"].shape[:2]
@@ -222,47 +289,15 @@ def make_train_fn(runtime, agent, txs, cfg, is_continuous: bool, actions_dim):
         wm_norm = step_(txs["world_model"], params["world_model"], rec_loss, opt_states["world_model"])
 
         # ------------------------------------------------ behaviour, imagined through the updated world model
-        prior0 = aux["posteriors"].detach().transpose(0, 1).reshape(T * B, sc.stoch_state_size)
-        rec0 = aux["recurrent_states"].detach().transpose(0, 1).reshape(T * B, sc.recurrent_state_size)
-        true_continue = (1 - data["terminated"].float()).transpose(0, 1).reshape(T * B, 1) * sc.gamma
-        with torch.set_grad_enabled(rollout_grad):
-            traj, imagined_actions = imagine(sc, wm.rssm, actor, prior0, rec0, noise["img"], noise["act"])
-            target_values = agent.target_critic(traj)
-            predicted_rewards = wm.reward_model(traj)
-            if sc.use_continues:
-                continues = torch.sigmoid(wm.continue_model(traj))
-                continues = torch.cat([true_continue[None], continues[1:]], 0)
-            else:
-                continues = torch.ones_like(predicted_rewards) * sc.gamma
-            lambda_values = compute_lambda_values(predicted_rewards[:-1], target_values[:-1], continues[:-1],
-                                                  target_values[-1:], sc.lmbda)
-        discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], 0), 0).detach()
-
-        # ------------------------------------------------ actor
-        _, policies = actor(traj[:-2].detach(), True)
-        advantage = (lambda_values[1:] - target_values[:-2]).detach()
-        sub_actions = [imagined_actions] if sc.is_continuous else torch.tensor_split(imagined_actions, list(sc.splits), -1)
-        reinforce = torch.stack(
-            [p.log_prob(a[1:-1].detach())[..., None] for p, a in zip(policies, sub_actions)], -1
-        ).sum(-1) * advantage
-        objective = sc.objective_mix * reinforce + (1 - sc.objective_mix) * lambda_values[1:]
-        try:
-            entropy = sc.ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
-        except (AttributeError, NotImplementedError):  # a distribution without entropy
-            entropy = torch.zeros_like(objective[..., 0])
-        policy_loss = -torch.mean(discount[:-2] * (objective + entropy[..., None]))
-        actor_norm = step_(txs["actor"], params["actor"], policy_loss, opt_states["actor"])
-
-        # ------------------------------------------------ critic
-        values = critic(traj.detach()[:-1])
-        qv = Independent(Normal(values, torch.ones_like(values)), 1)
-        value_loss = -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values.detach()))
-        critic_norm = step_(txs["critic"], params["critic"], value_loss, opt_states["critic"])
+        policy_loss, value_loss, actor_norm, critic_norm, _ = behaviour_update(
+            sc, wm, actor, agent.critic, agent.target_critic, txs, opt_states, params, ("actor", "critic"),
+            imagination_starts(sc, aux, data["terminated"]), noise["img"], noise["act"], sc.objective_mix,
+        )
 
         metrics = {
             **world_model_metrics(rec_loss, aux),
-            "Loss/policy_loss": policy_loss.detach(),
-            "Loss/value_loss": value_loss.detach(),
+            "Loss/policy_loss": policy_loss,
+            "Loss/value_loss": value_loss,
             "Grads/world_model": wm_norm,
             "Grads/actor": actor_norm,
             "Grads/critic": critic_norm,
@@ -312,7 +347,7 @@ def dreamer_setup(keys, build_agent, make_state):
     return setup
 
 
-def _player(modules, cfg, actions_dim, num_envs):
+def make_player(modules, cfg, actions_dim, num_envs):
     from sheeprl_tpu_torch.algos.dreamer_v2.agent import PlayerDV2
 
     wm_cfg = cfg.algo.world_model
@@ -331,7 +366,7 @@ DV2_FAMILY = DreamerFamily(
     load_state=resume_state,
     setup=dreamer_setup(("world_model", "actor", "critic", "target_critic"), _build_agent, make_train_state),
     restore_rb=lambda cfg, state: state is not None and bool(cfg.buffer.checkpoint),
-    make_player=_player,
+    make_player=make_player,
     generation=2,
 )
 

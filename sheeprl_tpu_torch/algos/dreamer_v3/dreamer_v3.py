@@ -20,9 +20,9 @@ gradient step, the target critic's EMA (tau = 1 on the very first, and
 always for DreamerV2's copies), then the step, on batches from :func:`~sheeprl_tpu_torch.data.device_buffer.sequence_batches`.
 
 :func:`main` is the env loop (``dreamer_v3.py:634-1049``),
-:func:`run_dreamer`, which Plan2Explore's two phases, DreamerV2 and
-DreamerV1 share through their own :class:`DreamerFamily` (V2 and V1 with
-their own replay rows, players and env settings), on the port's stepping
+:func:`run_dreamer`, which DreamerV2, DreamerV1 and Plan2Explore's two
+phases on each of the three share through their own :class:`DreamerFamily`
+(V2 and V1 with their own replay rows, players and env settings), on the port's stepping
 device vector env: random warm-up actions until
 ``learning_starts``, then the player's; every step's row and, where an
 episode ended, a reset row into an ``EnvIndependentReplayBuffer`` of
@@ -641,8 +641,8 @@ def _dv3_player(modules, cfg, actions_dim, num_envs):
 
 
 def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
-    """The env loop that DreamerV3, Plan2Explore's two phases, DreamerV2 and
-    DreamerV1 share (module docstring; their differences are fields of
+    """The env loop that DreamerV3, DreamerV2, DreamerV1 and Plan2Explore's
+    two phases on each share (module docstring; their differences are fields of
     :class:`DreamerFamily`).  Returns the run's summary: log dir, last
     checkpoint, policy and gradient steps, iterations, test reward, whether
     the player had switched to the run's ``train_actor`` by the end, and the
@@ -682,7 +682,8 @@ def run_dreamer(runtime, cfg, family: DreamerFamily = DV3_FAMILY):
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
     if not v3 and str(cfg.buffer.get("type", "sequential")).lower() != "sequential":
         raise NotImplementedError(
-            f"buffer.type={cfg.buffer.type} (the episode buffer, host only) waits for ROADMAP A3; use buffer.type=sequential"
+            f"buffer.type={cfg.buffer.type} (the episode buffer, host only) waits for ROADMAP A2 (host envs); "
+            "use buffer.type=sequential"
         )
 
     logger = get_logger(runtime, cfg)

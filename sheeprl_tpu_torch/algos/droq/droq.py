@@ -40,8 +40,9 @@ import torch
 from sheeprl_tpu_torch.algos.droq.agent import build_agent
 from sheeprl_tpu_torch.algos.sac.agent import SACAgent, actor_action_and_log_prob
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, critic_loss_weighted, entropy_loss, policy_loss, td_error_abs
-from sheeprl_tpu_torch.algos.sac.sac import OBS_KEYS, OffPolicyFamily, SACTrainState, run_off_policy
+from sheeprl_tpu_torch.algos.sac.sac import OBS_KEYS, OffPolicyFamily, SACTrainState, run_off_policy, sac_opt_groups, sac_player
 from sheeprl_tpu_torch.algos.sac.sac import make_train_state as sac_make_train_state
+from sheeprl_tpu_torch.algos.sac.utils import test
 from sheeprl_tpu_torch.optim import Adam, AdamState, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import ema_, grads_or_zeros, trainable_params
@@ -195,7 +196,7 @@ def train_dispatch(
 
 # the dispatch is looked up at each call, so that a caller may wrap the module's train_dispatch
 DROQ_FAMILY = OffPolicyFamily("DroQ", build_agent, make_train_state, lambda *a, **k: train_dispatch(*a, **k),
-                              batched=False)
+                              sac_player, sac_opt_groups, test, batched=False)
 
 
 @register_algorithm()

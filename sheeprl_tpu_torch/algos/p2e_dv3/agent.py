@@ -46,14 +46,22 @@ __all__ = ["P2EDV3Agent", "StackedDreamerMLP", "build_agent", "exploration_criti
 class StackedDreamerMLP(nn.Module):
     """``n`` DreamerMLPs (LinearLnAct layers, then a head) side by side:
     ``weights.i`` (n, in, units), ``norm_weights.i``/``norm_biases.i``
-    (n, units) (or ``biases.i`` without LayerNorm), ``head_weight``
-    (n, units, out), ``head_bias`` (n, out).  ``forward(x)`` maps (..., in)
-    to (n, ..., out) in f32."""
+    (n, units) with LayerNorm, ``biases.i`` (n, units) where the dense layer
+    has a bias, ``head_weight`` (n, units, out), ``head_bias`` (n, out).
+    ``forward(x)`` maps (..., in) to (n, ..., out) in f32.
+
+    ``bias`` None keeps DreamerV3's blocks (a bias only without LayerNorm);
+    DreamerV2's ``V2MLP`` (DenseActLn: a biased dense, then the optional
+    LayerNorm, eps 1e-6, then ELU) passes ``bias=True``, ``out_init="trunc"``
+    and ``block="DenseActLn"``, its flax name."""
 
     def __init__(self, n: int, in_features: int, units: int, layers: int, output_dim: int, layer_norm: bool = True,
-                 eps: float = 1e-3, act: Any = "silu", out_init: str = "uniform", device=None):
+                 eps: float = 1e-3, act: Any = "silu", out_init: str = "uniform", device=None, bias=None,
+                 block: str = "LinearLnAct"):
         super().__init__()
         self.n, self.layer_norm, self.eps = int(n), bool(layer_norm), float(eps)
+        self.bias = not self.layer_norm if bias is None else bool(bias)
+        self.flax_block = block
         self.act = resolve_activation(act)
         dims = [int(in_features)] + [int(units)] * int(layers)
         self.weights = nn.ParameterList()
@@ -65,11 +73,11 @@ class StackedDreamerMLP(nn.Module):
             for member in w:
                 flax_init_(member, "trunc")
             self.weights.append(nn.Parameter(w))
+            if self.bias:
+                self.biases.append(nn.Parameter(torch.zeros(self.n, dout, device=device)))
             if self.layer_norm:
                 self.norm_weights.append(nn.Parameter(torch.ones(self.n, dout, device=device)))
                 self.norm_biases.append(nn.Parameter(torch.zeros(self.n, dout, device=device)))
-            else:
-                self.biases.append(nn.Parameter(torch.zeros(self.n, dout, device=device)))
         head = torch.empty(self.n, dims[-1], int(output_dim), device=device)
         for member in head:
             flax_init_(member, out_init)
@@ -80,10 +88,10 @@ class StackedDreamerMLP(nn.Module):
         lead = x.shape[:-1]
         h = x.float().reshape(1, -1, x.shape[-1]).expand(self.n, -1, -1)
         for i, w in enumerate(self.weights):
+            h = torch.baddbmm(self.biases[i].unsqueeze(1), h, w) if self.bias else torch.bmm(h, w)
             if self.layer_norm:
-                h = self.act(layer_norm_stacked(torch.bmm(h, w), self.norm_weights[i], self.norm_biases[i], self.eps))
-            else:
-                h = self.act(torch.baddbmm(self.biases[i].unsqueeze(1), h, w))
+                h = layer_norm_stacked(h, self.norm_weights[i], self.norm_biases[i], self.eps)
+            h = self.act(h)
         out = torch.baddbmm(self.head_bias.unsqueeze(1), h, self.head_weight)
         return out.reshape(self.n, *lead, out.shape[-1])
 

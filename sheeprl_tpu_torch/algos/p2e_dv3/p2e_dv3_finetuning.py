@@ -22,7 +22,7 @@ import pathlib
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DreamerFamily, DreamerRun, make_train_state, run_dreamer
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
-__all__ = ["P2E_FINETUNING_FAMILY", "load_exploration_cfg", "main"]
+__all__ = ["P2E_FINETUNING_FAMILY", "finetuning_family", "load_exploration_cfg", "main"]
 
 # the exploration config's keys that fix the models' shapes (p2e_dv3_finetuning.py:67-80)
 MODEL_KEYS = ("gamma", "lmbda", "horizon", "dense_units", "mlp_layers", "dense_act", "cnn_act", "unimix",
@@ -46,73 +46,99 @@ def load_exploration_cfg(ckpt_path: str):
         return dotdict(yaml_load(f.read()))
 
 
-def _load_state(cfg):
-    """Pin the model keys to the exploration run's, then the checkpoint to
-    start from: this run's own when it resumes, else the exploration's."""
-    from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
+def finetuning_family(name: str, model_keys, task_keys, build_agent, build_actor, make_state, **family) -> DreamerFamily:
+    """A Plan2Explore finetuning family of the Dreamer loop (module
+    docstring): ``model_keys`` are pinned to the exploration run's config,
+    ``task_keys`` name the agent's parts in the checkpoint, ``build_agent``
+    and ``make_state`` build the task agent and its train state,
+    ``build_actor(runtime, actions_dim, is_continuous, cfg)`` the
+    exploration actor; ``family`` holds the rest of the
+    :class:`DreamerFamily` (the player, the generation)."""
+    groups = ("world_model", "actor", "critic")
 
-    ckpt_path = cfg.checkpoint.get("exploration_ckpt_path")
-    if not ckpt_path or ckpt_path == "???":
-        raise ValueError("p2e_dv3_finetuning needs checkpoint.exploration_ckpt_path=<an exploration run's checkpoint>")
-    exploration_cfg = load_exploration_cfg(ckpt_path)
-    for key in MODEL_KEYS:
-        if key in exploration_cfg.algo:
-            cfg.algo[key] = exploration_cfg.algo[key]
-    cfg.env.clip_rewards = exploration_cfg.env.clip_rewards
-    if cfg.buffer.get("load_from_exploration", False) and exploration_cfg.buffer.checkpoint:
-        cfg.env.num_envs = exploration_cfg.env.num_envs
-    cfg.env.frame_stack = -1
-    return load_checkpoint(cfg.checkpoint.resume_from or ckpt_path)
+    def load_state(cfg):
+        """Pin the model keys to the exploration run's, then the checkpoint to
+        start from: this run's own when it resumes, else the exploration's."""
+        from sheeprl_tpu_torch.utils.ckpt_format import load_checkpoint
 
+        ckpt_path = cfg.checkpoint.get("exploration_ckpt_path")
+        if not ckpt_path or ckpt_path == "???":
+            raise ValueError(f"{cfg.algo.name} needs checkpoint.exploration_ckpt_path=<an exploration run's checkpoint>")
+        exploration_cfg = load_exploration_cfg(ckpt_path)
+        for key in model_keys:
+            if key in exploration_cfg.algo:
+                cfg.algo[key] = exploration_cfg.algo[key]
+        cfg.env.clip_rewards = exploration_cfg.env.clip_rewards
+        if cfg.buffer.get("load_from_exploration", False) and exploration_cfg.buffer.checkpoint:
+            cfg.env.num_envs = exploration_cfg.env.num_envs
+        return load_checkpoint(cfg.checkpoint.resume_from or ckpt_path)
 
-def _setup(runtime, cfg, actions_dim, is_continuous, observation_space, state) -> DreamerRun:
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_actor, build_agent
-    from sheeprl_tpu_torch.utils.convert import (
-        adam_state_from_checkpoint,
-        adam_state_to_tree,
-        group_to_flax,
-        load_flax_params,
-        load_group_params,
-        moments_to_torch,
-        torch_to_flax,
+    def setup(runtime, cfg, actions_dim, is_continuous, observation_space, state) -> DreamerRun:
+        from sheeprl_tpu_torch.utils.convert import (
+            adam_state_from_checkpoint,
+            adam_state_to_tree,
+            group_to_flax,
+            load_flax_params,
+            load_group_params,
+            moments_to_torch,
+            torch_to_flax,
+        )
+
+        # what trains, acts or is saved here: the task agent and the exploration actor
+        agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space)
+        load_flax_params(agent, {k: state[key] for k, key in task_keys.items()})
+        actor_exploration = load_group_params(build_actor(runtime, actions_dim, is_continuous, cfg),
+                                              state["actor_exploration"], "actor")
+        train_state = make_state(runtime, agent, cfg, is_continuous, actions_dim)
+        saved = state.get("opt_states", {})
+        for g in groups:
+            if task_keys[g] in saved:
+                train_state.opt_states[g] = adam_state_from_checkpoint(saved[task_keys[g]], getattr(agent, g), g)
+        keeps_moments = bool(train_state.moments)
+        if keeps_moments and "moments_task" in state:
+            train_state.moments = moments_to_torch(state["moments_task"], runtime.device)
+
+        def ckpt_state():
+            params = torch_to_flax(agent)
+            out = {
+                **{key: params[k] for k, key in task_keys.items()},
+                "actor_exploration": group_to_flax(dict(actor_exploration.named_parameters()), actor_exploration,
+                                                   "actor"),
+                "opt_states": {task_keys[g]: adam_state_to_tree(train_state.opt_states[g], getattr(agent, g), g)
+                               for g in groups},
+            }
+            if keeps_moments:
+                out["moments_task"] = dict(train_state.moments)
+            return out
+
+        start = actor_exploration if str(cfg.algo.player.actor_type) == "exploration" else agent.actor
+        return DreamerRun(train_state, start, ckpt_state, train_actor=agent.actor, test_actor=agent.actor)
+
+    return DreamerFamily(
+        name=name,
+        load_state=load_state,
+        setup=setup,
+        restore_rb=lambda cfg, state: (bool(cfg.checkpoint.resume_from) or bool(cfg.buffer.get("load_from_exploration", False)))
+        and "rb" in state,
+        random_warmup=False,
+        test_name="few-shot",
+        **family,
     )
 
-    # what trains, acts or is saved here: DreamerV3's agent (the task behaviour) and the exploration actor
-    agent = build_agent(runtime, actions_dim, is_continuous, cfg, observation_space)
-    load_flax_params(agent, {k: state[key] for k, key in TASK_KEYS.items()})
-    actor_exploration = load_group_params(build_actor(runtime, actions_dim, is_continuous, cfg),
-                                          state["actor_exploration"], "actor")
-    train_state = make_train_state(runtime, agent, cfg, is_continuous, actions_dim)
-    groups = {"world_model": agent.world_model, "actor": agent.actor, "critic": agent.critic}
-    saved = state.get("opt_states", {})
-    for g in groups:
-        if TASK_KEYS[g] in saved:
-            train_state.opt_states[g] = adam_state_from_checkpoint(saved[TASK_KEYS[g]], groups[g], g)
-    if "moments_task" in state:
-        train_state.moments = moments_to_torch(state["moments_task"], runtime.device)
 
-    def ckpt_state():
-        params = torch_to_flax(agent)
-        return {
-            **{key: params[k] for k, key in TASK_KEYS.items()},
-            "actor_exploration": group_to_flax(dict(actor_exploration.named_parameters()), actor_exploration, "actor"),
-            "opt_states": {TASK_KEYS[g]: adam_state_to_tree(train_state.opt_states[g], m, g) for g, m in groups.items()},
-            "moments_task": dict(train_state.moments),
-        }
+def _build_agent(*args):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
 
-    start = actor_exploration if str(cfg.algo.player.actor_type) == "exploration" else agent.actor
-    return DreamerRun(train_state, start, ckpt_state, train_actor=agent.actor, test_actor=agent.actor)
+    return build_agent(*args)
 
 
-P2E_FINETUNING_FAMILY = DreamerFamily(
-    name="P2E-DV3",
-    load_state=_load_state,
-    setup=_setup,
-    restore_rb=lambda cfg, state: (bool(cfg.checkpoint.resume_from) or bool(cfg.buffer.get("load_from_exploration", False)))
-    and "rb" in state,
-    random_warmup=False,
-    test_name="few-shot",
-)
+def _build_actor(*args):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_actor
+
+    return build_actor(*args)
+
+
+P2E_FINETUNING_FAMILY = finetuning_family("P2E-DV3", MODEL_KEYS, TASK_KEYS, _build_agent, _build_actor, make_train_state)
 
 
 @register_algorithm()

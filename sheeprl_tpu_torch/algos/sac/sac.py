@@ -26,7 +26,7 @@ Randomness: a train function call draws its standard-normal noise
 actions, ``[:, 1]`` for the actor loss), or takes it pre-drawn.
 
 :func:`main` is the env loop (``sac.py:235-666``), :func:`run_off_policy`,
-which DroQ shares through its own :class:`OffPolicyFamily`, on the port's
+which DroQ and SAC-AE share through their own :class:`OffPolicyFamily`, on the port's
 stepping device vector env: random warm-up actions until ``learning_starts``, then
 the actor's; every step's row into a ``ReplayBuffer`` and, held back
 ``algo.dispatch_batch`` steps at a time, into its device cache; the
@@ -49,14 +49,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.sac.agent import SACAgent, actor_action_and_log_prob, build_agent
+from sheeprl_tpu_torch.algos.sac.agent import SACAgent, SACPlayer, actor_action_and_log_prob, build_agent
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, critic_loss_weighted, entropy_loss, policy_loss, td_error_abs
+from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.optim import Adam, AdamState, build_optimizer, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import ema_, grads_or_zeros, trainable_params
 
 __all__ = ["OffPolicyFamily", "SACTrainState", "SAC_FAMILY", "main", "make_train_fn", "make_train_state",
-           "run_off_policy", "train_dispatch"]
+           "run_off_policy", "sac_opt_groups", "sac_player", "train_dispatch"]
 
 OBS_KEYS = ("observations",)
 
@@ -236,24 +237,47 @@ class OffPolicyFamily:
     in messages, the agent (``build_agent(runtime, cfg, obs_space,
     action_space)`` -> (agent, target entropy)), its train state
     (``make_train_state(runtime, agent, cfg, target_entropy, prioritized)``)
-    and its dispatch (``dispatch(state, rb, device_cache, cfg, ema_flags,
-    policy_step, beta_fn, pending_rows, generator)`` -> metrics);
-    ``batched``: whether ``algo.dispatch_batch`` applies (else every
+    its dispatch (``dispatch(state, rb, device_cache, cfg, ema_flags,
+    policy_step, beta_fn, pending_rows, generator)`` -> metrics), its player
+    (``make_player(agent, cfg, num_envs)``), its optimizer groups
+    (``opt_groups(agent)``: each group's name and the module that lays out
+    its checkpoint tree) and its test episode (``test(player, runtime, cfg,
+    log_dir)``); ``batched``: whether ``algo.dispatch_batch`` applies (else every
     iteration's gradient steps are one dispatch); ``benchmark_pin``: whether
     ``run_benchmarks`` pins one gradient step an iteration (SAC's rule,
-    ``sac.py:471``; DroQ's ratio holds under it)."""
+    ``sac.py:471``; DroQ's ratio holds under it).
+
+    ``keyed_rows``: the replay keeps each observation key as it is (image
+    keys included) with its ``next_<key>`` (SAC-AE, ``sac_ae.py:393-399``),
+    else the MLP keys side by side as ``observations`` (image keys dropped
+    with a warning)."""
 
     name: str
     build_agent: Callable
     make_train_state: Callable
     dispatch: Callable
+    make_player: Callable
+    opt_groups: Callable
+    test: Callable
     batched: bool = True
     benchmark_pin: bool = False
+    keyed_rows: bool = False
+
+
+def sac_player(agent, cfg, num_envs: int) -> SACPlayer:
+    """SAC's and DroQ's player: the actor on the MLP keys side by side."""
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    return SACPlayer(agent.actor, lambda o: prepare_obs(o, mlp_keys=mlp_keys, num_envs=num_envs))
+
+
+def sac_opt_groups(agent) -> Dict[str, Any]:
+    """SAC's and DroQ's optimizer groups."""
+    return {"actor": agent.actor, "critic": agent.critic, "alpha": agent}
 
 
 # the dispatch is looked up at each call, so that a caller may wrap the module's train_dispatch
 SAC_FAMILY = OffPolicyFamily("SAC", build_agent, make_train_state, lambda *a, **k: train_dispatch(*a, **k),
-                             benchmark_pin=True)
+                             sac_player, sac_opt_groups, test, benchmark_pin=True)
 
 
 @register_algorithm()
@@ -263,7 +287,7 @@ def main(runtime, cfg):
 
 
 def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
-    """The off-policy env loop that SAC and DroQ share (module docstring).
+    """The off-policy env loop that SAC, DroQ and SAC-AE share (module docstring).
     Returns the run's summary: log dir, last checkpoint, policy and gradient
     steps, iterations, dispatches, test reward, and the seconds spent in the
     warm-up iterations, in the iterations from ``learning_starts`` on and in
@@ -271,8 +295,6 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
     import time
     import warnings
 
-    from sheeprl_tpu_torch.algos.sac.agent import SACPlayer
-    from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.data.device_buffer import maybe_create_for_transitions
@@ -297,7 +319,7 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
     runtime.seed_everything(cfg.seed)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
 
-    if len(cfg.algo.cnn_keys.encoder) > 0:
+    if len(cfg.algo.cnn_keys.encoder) > 0 and not family.keyed_rows:
         warnings.warn(f"{family.name} cannot use image observations, the CNN keys will be ignored")
         cfg.algo.cnn_keys.encoder = []
 
@@ -315,25 +337,32 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
         raise ValueError(f"Only continuous action space is supported for the {family.name} agent")
     if not isinstance(observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
-    if len(cfg.algo.mlp_keys.encoder) == 0:
-        raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
-    for k in cfg.algo.mlp_keys.encoder:
-        if len(observation_space[k].shape) > 1:
-            raise ValueError(
-                f"Only vector observations are supported by {family.name}; key '{k}' has shape {observation_space[k].shape}"
-            )
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    if family.keyed_rows:
+        if set(cfg.algo.cnn_keys.decoder) - set(cfg.algo.cnn_keys.encoder) or set(cfg.algo.mlp_keys.decoder) - set(mlp_keys):
+            raise RuntimeError("The decoder keys must be contained in the encoder ones")
+        obs_keys = tuple(cfg.algo.cnn_keys.encoder) + tuple(mlp_keys)
+    else:
+        if len(mlp_keys) == 0:
+            raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
+        for k in mlp_keys:
+            if len(observation_space[k].shape) > 1:
+                raise ValueError(
+                    f"Only vector observations are supported by {family.name}; key '{k}' has shape {observation_space[k].shape}"
+                )
+        obs_keys = OBS_KEYS
 
     agent, target_entropy = family.build_agent(runtime, cfg, observation_space, action_space)
     if state is not None:
         load_flax_params(agent, state["agent"])
-    player = SACPlayer(agent.actor, lambda o: prepare_obs(o, mlp_keys=mlp_keys, num_envs=total_envs))
+    player = family.make_player(agent, cfg, total_envs)
+    opt_groups = family.opt_groups(agent)
     save_configs(cfg, log_dir)
 
     aggregator = None if MetricAggregator.disabled else instantiate(dict(cfg.metric.aggregator))
 
     buffer_size = cfg.buffer.size // int(total_envs) if not cfg.dry_run else 1
-    rb = ReplayBuffer(max(buffer_size, 1), total_envs, memmap=cfg.buffer.memmap, obs_keys=OBS_KEYS)
+    rb = ReplayBuffer(max(buffer_size, 1), total_envs, memmap=cfg.buffer.memmap, obs_keys=obs_keys)
     if state and cfg.buffer.checkpoint:
         rb = restore_buffer(state["rb"])
     device_cache = maybe_create_for_transitions(cfg, runtime, rb, state if state and cfg.buffer.checkpoint else None)
@@ -343,8 +372,7 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
     )
     train_state = family.make_train_state(runtime, agent, cfg, target_entropy, prioritized)
     if state is not None:
-        modules = {"actor": agent.actor, "critic": agent.critic, "alpha": agent}
-        train_state.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in modules.items()}
+        train_state.opt_states = {g: adam_state_from_tree(state["opt_states"][g], m, g) for g, m in opt_groups.items()}
 
     last_train = 0
     train_step = 0
@@ -408,14 +436,19 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
             for idx in np.nonzero(infos["_final_obs"])[0]:
                 for k, v in infos["final_obs"][idx].items():
                     real_next_obs[k][idx] = v
-        flat_next_obs = np.concatenate([real_next_obs[k] for k in mlp_keys], axis=-1).astype(np.float32)
-
+        if family.keyed_rows:
+            for k in obs_keys:
+                step_data[k] = obs[k][np.newaxis]
+                if not cfg.buffer.sample_next_obs:
+                    step_data[f"next_{k}"] = real_next_obs[k][np.newaxis]
         step_data["terminated"] = terminated.reshape(1, total_envs, -1).astype(np.uint8)
         step_data["truncated"] = truncated.reshape(1, total_envs, -1).astype(np.uint8)
         step_data["actions"] = actions.reshape(1, total_envs, -1).astype(np.float32)
-        step_data["observations"] = np.concatenate([obs[k] for k in mlp_keys], axis=-1).astype(np.float32)[np.newaxis]
-        if not cfg.buffer.sample_next_obs:
-            step_data["next_observations"] = flat_next_obs[np.newaxis]
+        if not family.keyed_rows:
+            step_data["observations"] = np.concatenate([obs[k] for k in mlp_keys], axis=-1).astype(np.float32)[np.newaxis]
+            if not cfg.buffer.sample_next_obs:
+                flat_next_obs = np.concatenate([real_next_obs[k] for k in mlp_keys], axis=-1).astype(np.float32)
+                step_data["next_observations"] = flat_next_obs[np.newaxis]
         step_data["rewards"] = rewards[np.newaxis].astype(np.float32)
         rb.add(step_data, validate_args=cfg.buffer.validate_args)
         if device_cache is not None:
@@ -481,10 +514,9 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
             last_train = train_step
 
         def _ckpt_state():
-            modules = {"actor": agent.actor, "critic": agent.critic, "alpha": agent}
             ckpt_state = {
                 "agent": torch_to_flax(agent),
-                "opt_states": {g: adam_state_to_tree(train_state.opt_states[g], m, g) for g, m in modules.items()},
+                "opt_states": {g: adam_state_to_tree(train_state.opt_states[g], m, g) for g, m in opt_groups.items()},
                 "ratio": ratio.state_dict(),
                 "pending_iters": list(pending_iters),
                 "iter_num": iter_num * world_size,
@@ -506,7 +538,7 @@ def run_off_policy(runtime, cfg, family: OffPolicyFamily = SAC_FAMILY):
     envs.close()
     test_rew = None
     if cfg.algo.run_test:
-        test_rew = test(player, runtime, cfg, log_dir)
+        test_rew = family.test(player, runtime, cfg, log_dir)
         if logger:
             logger.log_metrics({"Test/cumulative_reward": test_rew}, policy_step)
     if logger:

@@ -1,5 +1,6 @@
-"""Carry the JAX package's DreamerV3, Plan2Explore-DreamerV3, DreamerV2,
-DreamerV1, SAC, DroQ and PPO/A2C state into the port's modules, and back.
+"""Carry the JAX package's DreamerV3, DreamerV2, DreamerV1, Plan2Explore
+(on each of the three), SAC, DroQ, SAC-AE and PPO/A2C state into the port's
+modules, and back.
 
 ``flax_to_torch(tree, agent)`` turns a parameter tree of ``sheeprl_tpu``
 (numpy arrays, as a checkpoint holds them) into a ``state_dict``:
@@ -29,7 +30,18 @@ DreamerV1, SAC, DroQ and PPO/A2C state into the port's modules, and back.
   "actor_exploration", "critics_exploration": {name: {"module",
   "target_module"}}, "ensembles"}`` (:data:`P2E_KEYS`, an exploration
   checkpoint's), the ensembles' vmapped ``LinearLnAct_<i>`` and head leaves
-  with their leading member axis kept;
+  with their leading member axis kept; for a P2E-DV2 or P2E-DV1 agent the
+  same with one ``critic_exploration`` (and DV2's ``target_critic_task`` and
+  ``target_critic_exploration``) in their DreamerV2/V1 layouts, the
+  ensembles' ``DenseActLn_<i>`` leaves with their biases (:func:`p2e_keys`);
+- for a :class:`~sheeprl_tpu_torch.algos.sac_ae.agent.SACAEAgent`, the tree
+  ``{"critic": {"encoder", "qfs"}, "target", "actor": {"trunk",
+  "cnn_head"}, "decoder": {"cnn", "mlp"}, "log_alpha"}``: the conv stack's
+  ``convnet/Conv_<i>`` and ``head``, the ``Dense_<i>``/``LayerNorm_<i>``
+  MLPs, the vmapped Q functions' leaves with their member axis, the conv
+  decoder's flipped ``ConvTranspose_<i>``; its optimizer groups ``critic``,
+  ``actor``, ``encoder`` and ``decoder`` lay out as those subtrees
+  (:data:`SAC_AE_GROUPS`);
 - for a :class:`~sheeprl_tpu_torch.algos.ppo.agent.PPOAgentModule` (PPO
   and A2C), the flax variables ``{"params": {"feature_extractor":
   {"mlp_encoder": {"MLP_0": ...}}, "critic", "actor_backbone",
@@ -89,6 +101,7 @@ __all__ = [
     "opt_state_to_torch",
     "opt_state_to_tree",
     "load_p2e_state",
+    "p2e_keys",
     "p2e_state",
     "torch_to_flax",
     "unflatten_tree",
@@ -282,18 +295,95 @@ def _sac_critic(m: _Mapper, critic, src: str, dst: str) -> None:
 
 
 def _stacked_mlp(m: _Mapper, mlp, src: str, dst: str) -> None:
-    """A vmapped flax DreamerMLP (``LinearLnAct_<i>/Dense_0``, ``LayerNorm_0``
-    or a bias, head ``Dense_0``, every leaf with a leading member axis) as a
+    """A vmapped flax DreamerMLP or V2MLP (``<block>_<i>/Dense_0`` with its
+    bias where it has one, ``LayerNorm_0``, head ``Dense_0``, every leaf
+    with a leading member axis) as a
     :class:`~sheeprl_tpu_torch.algos.p2e_dv3.agent.StackedDreamerMLP`."""
+    block = mlp.flax_block
     for i in range(len(mlp.weights)):
-        m.put(f"{dst}.weights.{i}", m.take(f"{src}/LinearLnAct_{i}/Dense_0/kernel"))
+        m.put(f"{dst}.weights.{i}", m.take(f"{src}/{block}_{i}/Dense_0/kernel"))
+        if mlp.bias:
+            m.put(f"{dst}.biases.{i}", m.take(f"{src}/{block}_{i}/Dense_0/bias"))
         if mlp.layer_norm:
-            m.put(f"{dst}.norm_weights.{i}", m.take(f"{src}/LinearLnAct_{i}/LayerNorm_0/scale"))
-            m.put(f"{dst}.norm_biases.{i}", m.take(f"{src}/LinearLnAct_{i}/LayerNorm_0/bias"))
-        else:
-            m.put(f"{dst}.biases.{i}", m.take(f"{src}/LinearLnAct_{i}/Dense_0/bias"))
+            m.put(f"{dst}.norm_weights.{i}", m.take(f"{src}/{block}_{i}/LayerNorm_0/scale"))
+            m.put(f"{dst}.norm_biases.{i}", m.take(f"{src}/{block}_{i}/LayerNorm_0/bias"))
     m.put(f"{dst}.head_weight", m.take(f"{src}/Dense_0/kernel"))
     m.put(f"{dst}.head_bias", m.take(f"{src}/Dense_0/bias"))
+
+
+def _relu_mlp(m, mlp, src: str, dst: str) -> None:
+    """SAC-AE's ``ReluMLP``: ``Dense_<i>`` and ``LayerNorm_<i>`` (numbered in
+    the order flax creates them)."""
+    for i in range(len(mlp.layers)):
+        m.dense(f"{src}/Dense_{i}", f"{dst}.layers.{i}")
+        if mlp.norms is not None:
+            m.norm(f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}")
+
+
+def _sac_ae_encoder(m, encoder, src: str, dst: str) -> None:
+    """SAC-AE's encoder: ``cnn`` (``convnet/Conv_<i>``, ``head/Dense_0`` and
+    ``head/LayerNorm_0``) and ``mlp``."""
+    if encoder.cnn is not None:
+        _conv_stack(m, f"{src}/cnn/params/convnet", f"{dst}.cnn.convnet", len(encoder.cnn.convnet.convs), None, "Conv")
+        m.dense(f"{src}/cnn/params/head/Dense_0", f"{dst}.cnn.head.dense")
+        m.norm(f"{src}/cnn/params/head/LayerNorm_0", f"{dst}.cnn.head.norm")
+    if encoder.mlp is not None:
+        _relu_mlp(m, encoder.mlp.mlp, f"{src}/mlp/params", f"{dst}.mlp.mlp")
+
+
+def _sac_ae_critic(m, critic, src: str, dst: str) -> None:
+    """An encoder and the vmapped Q functions (``qfs/params/Dense_<i>``,
+    leading member axis kept)."""
+    _sac_ae_encoder(m, critic.encoder, f"{src}/encoder", f"{dst}.encoder")
+    for i in range(len(critic.qfs.weights)):
+        m.put(f"{dst}.qfs.weights.{i}", m.take(f"{src}/qfs/params/Dense_{i}/kernel"))
+        m.put(f"{dst}.qfs.biases.{i}", m.take(f"{src}/qfs/params/Dense_{i}/bias"))
+
+
+def _sac_ae_actor(m, actor, src: str, dst: str) -> None:
+    """The trunk's ``Dense_0``/``Dense_1`` and its mean and log-std heads
+    ``Dense_2``/``Dense_3``; the conv head where there is one."""
+    for i in range(len(actor.trunk.layers)):
+        m.dense(f"{src}/trunk/params/Dense_{i}", f"{dst}.trunk.layers.{i}")
+    n = len(actor.trunk.layers)
+    m.dense(f"{src}/trunk/params/Dense_{n}", f"{dst}.trunk.mean")
+    m.dense(f"{src}/trunk/params/Dense_{n + 1}", f"{dst}.trunk.log_std")
+    if actor.cnn_head is not None:
+        m.dense(f"{src}/cnn_head/params/Dense_0", f"{dst}.cnn_head.dense")
+        m.norm(f"{src}/cnn_head/params/LayerNorm_0", f"{dst}.cnn_head.norm")
+
+
+def _sac_ae_decoder(m, decoder, src: str, dst: str) -> None:
+    """The conv decoder (``Dense_0``, flipped ``ConvTranspose_<i>``) and the
+    MLP decoder (its trunk, then a ``Dense_<n + j>`` head a key)."""
+    if decoder.cnn is not None:
+        m.dense(f"{src}/cnn/params/Dense_0", f"{dst}.cnn.dense")
+        _conv_stack(m, f"{src}/cnn/params", f"{dst}.cnn", len(decoder.cnn.deconvs), None, "ConvTranspose")
+    if decoder.mlp is not None:
+        _relu_mlp(m, decoder.mlp.mlp, f"{src}/mlp/params", f"{dst}.mlp.mlp")
+        n = len(decoder.mlp.mlp.layers)
+        for j in range(len(decoder.mlp.heads)):
+            m.dense(f"{src}/mlp/params/Dense_{n + j}", f"{dst}.mlp.heads.{j}")
+
+
+def _is_sac_ae(agent: torch.nn.Module) -> bool:
+    return hasattr(agent, "decoder") and hasattr(agent, "log_alpha")
+
+
+def _map_sac_ae(m, agent: torch.nn.Module) -> None:
+    """SAC-AE's tree ``{"critic": {"encoder", "qfs"}, "target": {"encoder",
+    "qfs"}, "actor": {"trunk", "cnn_head"}, "decoder": {"cnn", "mlp"},
+    "log_alpha"}``."""
+    for name in ("critic", "target"):
+        _sac_ae_critic(m, getattr(agent, name), name, name)
+    _sac_ae_actor(m, agent.actor, "actor", "actor")
+    _sac_ae_decoder(m, agent.decoder, "decoder", "decoder")
+    m.put("log_alpha", m.take("log_alpha"))
+
+
+# SAC-AE's optimizer groups (its JAX checkpoint's opt_states keys) and their mappings
+SAC_AE_GROUPS = {"critic": _sac_ae_critic, "actor": _sac_ae_actor, "encoder": _sac_ae_encoder,
+                 "decoder": _sac_ae_decoder}
 
 
 class _Ref:
@@ -453,7 +543,9 @@ def flax_to_torch(tree: Dict[str, Any], agent: torch.nn.Module) -> Dict[str, tor
         _ppo(m, agent)
         return _finish(m, agent.state_dict())
     if _is_p2e(agent):
-        expect = set(P2E_KEYS)
+        expect = set(p2e_keys(agent))
+    elif _is_sac_ae(agent):
+        expect = {"critic", "target", "actor", "decoder", "log_alpha"}
     elif _is_sac(agent):
         expect = {"actor", "critic", "target_critic", "log_alpha"}
     elif _is_full_agent(agent):
@@ -482,49 +574,75 @@ def _is_p2e(agent: torch.nn.Module) -> bool:
     return hasattr(agent, "ensembles")
 
 
+def p2e_keys(agent: torch.nn.Module) -> Dict[str, str]:
+    """A Plan2Explore agent's JAX keys and the port's modules: P2E-DV3's
+    (:data:`P2E_KEYS`), or P2E-DV2's and P2E-DV1's one exploration critic,
+    with its and the task's target critics where the agent keeps them (not
+    DreamerV1)."""
+    if hasattr(agent, "critics_exploration"):
+        return P2E_KEYS
+    keys = {"world_model": "world_model", "actor_task": "actor", "critic_task": "critic",
+            "actor_exploration": "actor_exploration", "critic_exploration": "critic_exploration",
+            "ensembles": "ensembles"}
+    if hasattr(agent, "target_critic"):
+        keys.update(target_critic_task="target_critic", target_critic_exploration="target_critic_exploration")
+    return keys
+
+
 def _map_p2e(m, agent: torch.nn.Module) -> None:
-    """The mapping of a P2E-DV3 agent (:data:`P2E_KEYS`)."""
+    """The mapping of a Plan2Explore agent (:func:`p2e_keys`)."""
+    keys = p2e_keys(agent)
     _encoder_rssm(m, agent.world_model, "world_model", "world_model")
     _training_heads(m, agent.world_model, "world_model", "world_model")
     for key in ("actor_task", "actor_exploration"):
-        _actor(m, getattr(agent, P2E_KEYS[key]), key, P2E_KEYS[key])
-    for key in ("critic_task", "target_critic_task"):
-        m.mlp(f"{key}/params", P2E_KEYS[key], len(getattr(agent, P2E_KEYS[key]).layers), head=True)
-    for name, pair in agent.critics_exploration.items():
+        _actor(m, getattr(agent, keys[key]), key, keys[key])
+    for key, name in keys.items():
+        if "critic" in key and key != "critics_exploration":
+            module = getattr(agent, name)
+            m.mlp(f"{key}/params", name, len(module.layers), head=True, block=_trunk(module)[1])
+    for name, pair in getattr(agent, "critics_exploration", {}).items():
         for sub in ("module", "target_module"):
             m.mlp(f"critics_exploration/{name}/{sub}/params", f"critics_exploration.{name}.{sub}",
                   len(pair[sub].layers), head=True)
     _stacked_mlp(m, agent.ensembles, "ensembles/params", "ensembles")
 
 
-# the P2E-DV3 optimizer groups: the port's name, the JAX checkpoint's, the mapping that lays it out
+# the Plan2Explore optimizer groups: the port's name, the JAX checkpoint's, the mapping that lays it out
 P2E_OPT_GROUPS = (("world_model", "world_model", "world_model"), ("ensembles", "ensembles", "ensembles"),
                   ("actor", "actor_task", "actor"), ("critic", "critic_task", "critic"),
                   ("actor_exploration", "actor_exploration", "actor"))
 
 
+def _p2e_opt_groups(agent) -> tuple:
+    """:data:`P2E_OPT_GROUPS`, and P2E-DV2's and P2E-DV1's exploration critic."""
+    if hasattr(agent, "critic_exploration"):
+        return P2E_OPT_GROUPS + (("critic_exploration", "critic_exploration", "critic"),)
+    return P2E_OPT_GROUPS
+
+
 def p2e_state(agent, train_state) -> Dict[str, Any]:
-    """An exploration checkpoint's model, optimizer and Moments entries in
-    the JAX package's keys."""
-    modules = {"world_model": agent.world_model, "ensembles": agent.ensembles, "actor": agent.actor,
-               "critic": agent.critic, "actor_exploration": agent.actor_exploration}
-    opt = {jax_g: adam_state_to_tree(train_state.opt_states[port_g], modules[port_g], mapping)
-           for port_g, jax_g, mapping in P2E_OPT_GROUPS}
-    opt["critics_exploration"] = {
-        n: adam_state_to_tree(train_state.opt_states["critics_exploration"][n], pair["module"], "critic")
-        for n, pair in agent.critics_exploration.items()
-    }
-    return {**torch_to_flax(agent), "opt_states": opt, "moments_task": dict(train_state.moments["task"]),
-            "moments_exploration": {n: dict(v) for n, v in train_state.moments["exploration"].items()}}
+    """An exploration checkpoint's model, optimizer and (P2E-DV3) Moments
+    entries in the JAX package's keys."""
+    opt = {jax_g: adam_state_to_tree(train_state.opt_states[port_g], getattr(agent, port_g), mapping)
+           for port_g, jax_g, mapping in _p2e_opt_groups(agent)}
+    out = {**torch_to_flax(agent), "opt_states": opt}
+    if hasattr(agent, "critics_exploration"):
+        opt["critics_exploration"] = {
+            n: adam_state_to_tree(train_state.opt_states["critics_exploration"][n], pair["module"], "critic")
+            for n, pair in agent.critics_exploration.items()
+        }
+        out.update(moments_task=dict(train_state.moments["task"]),
+                   moments_exploration={n: dict(v) for n, v in train_state.moments["exploration"].items()})
+    return out
 
 
 def load_p2e_state(agent, train_state, state: Dict[str, Any], device=None) -> None:
     """The inverse of :func:`p2e_state`, into ``agent`` and ``train_state``."""
-    load_flax_params(agent, {k: state[k] for k in P2E_KEYS})
-    modules = {"world_model": agent.world_model, "ensembles": agent.ensembles, "actor": agent.actor,
-               "critic": agent.critic, "actor_exploration": agent.actor_exploration}
-    for port_g, jax_g, mapping in P2E_OPT_GROUPS:
-        train_state.opt_states[port_g] = adam_state_from_tree(state["opt_states"][jax_g], modules[port_g], mapping)
+    load_flax_params(agent, {k: state[k] for k in p2e_keys(agent)})
+    for port_g, jax_g, mapping in _p2e_opt_groups(agent):
+        train_state.opt_states[port_g] = adam_state_from_tree(state["opt_states"][jax_g], getattr(agent, port_g), mapping)
+    if not hasattr(agent, "critics_exploration"):
+        return
     train_state.opt_states["critics_exploration"] = {
         n: adam_state_from_tree(state["opt_states"]["critics_exploration"][n], pair["module"], "critic")
         for n, pair in agent.critics_exploration.items()
@@ -539,6 +657,9 @@ def _map_agent(m, agent: torch.nn.Module) -> None:
     or a DreamerV3 player."""
     if _is_p2e(agent):
         _map_p2e(m, agent)
+        return
+    if _is_sac_ae(agent):
+        _map_sac_ae(m, agent)
         return
     if _is_sac(agent):
         _sac_actor(m, agent.actor, "actor", "actor")
@@ -556,8 +677,12 @@ def _map_agent(m, agent: torch.nn.Module) -> None:
 
 
 def _map_group(m, module: torch.nn.Module, group: str) -> None:
-    """The mapping of one optimizer group (world_model, actor or critic)."""
-    if group == "world_model":
+    """The mapping of one optimizer group (world_model, actor or critic;
+    SAC-AE's groups for its modules)."""
+    sac_ae = getattr(module, "sac_ae_group", None)
+    if sac_ae is not None:
+        SAC_AE_GROUPS[sac_ae](m, module, group, group)
+    elif group == "world_model":
         _encoder_rssm(m, module, group, group)
         _training_heads(m, module, group, group)
     elif group == "ensembles":

@@ -29,6 +29,11 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.droq.droq",
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
+    "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
 )
 
 

@@ -494,7 +494,7 @@ def test_cli_run_checkpoint_read_by_jax_and_resume(tmp_path, capsys):
 
 
 def test_episode_buffer_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="A2"):
         run(dv2_args(tmp_path, "episode", extra=["buffer.type=episode", "algo.total_steps=8"]))
 
 

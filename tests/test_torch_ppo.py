@@ -416,6 +416,11 @@ def test_port_scope_raises_name_their_roadmap_items(tmp_path, capsys):
     for override, item in cases.items():
         with pytest.raises((NotImplementedError, ValueError), match=item):
             run(cli_overrides(tmp_path, "scope", 1, extra=[override]))
+    # the episode buffer's only published users are the pixel host-env exps, which wait for A2's host envs
+    with pytest.raises(NotImplementedError, match="A2"):
+        run(["exp=dreamer_v2", "env=jax_gridworld", "algo.env_backend=jax", "fabric.accelerator=cpu",
+             "metric.log_level=0", f"root_dir={tmp_path}", "run_name=episode", "buffer.type=episode",
+             "algo.total_steps=8"])
 
 
 def test_chip_smoke_ppo_phases_run_on_cpu():
